@@ -1,0 +1,198 @@
+"""Shared building blocks (NCHW inside, fp32 parameters, compute in the
+activation dtype).
+
+Counterpart of ``prpe_tpu/nn/common.py``. Parameters stay fp32 and each
+layer casts them to the dtype of its input, as flax's ``dtype=`` argument
+does, so one model serves both the fp32 path and the bf16 path. Module and
+parameter names mirror the flax trees, which keeps the weight bridge
+(``models/porting.py``) a rename plus layout transposes.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def fast_gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU: exact erf in fp32, tanh-approximate in bf16 (the JAX package's
+    choice: the tanh error is below bf16's own rounding step)."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` whose fp32 parameters are cast to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose fp32 parameters are cast to the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics and normalisation; the result is cast
+    back to the input dtype (flax ``LayerNorm(dtype=...)`` semantics)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm folded into a per-channel scale and bias.
+
+    The scale and bias are computed in fp32 from the running statistics, then
+    applied as ``x * scale + bias`` in the activation dtype, exactly as
+    ``prpe_tpu.nn.common.inference_bn`` does. ``dim`` is the channel axis.
+    """
+
+    def __init__(self, channels: int, eps: float, affine: bool = True, dim: int = 1):
+        super().__init__()
+        self.eps = eps
+        self.dim = dim
+        if affine:
+            self.weight = nn.Parameter(torch.empty(channels))
+            self.bias = nn.Parameter(torch.empty(channels))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+        self.register_buffer("running_mean", torch.empty(channels))
+        self.register_buffer("running_var", torch.empty(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = torch.rsqrt(self.running_var.float() + self.eps)
+        if self.weight is not None:
+            scale = scale * self.weight.float()
+        bias = -self.running_mean.float() * scale
+        if self.bias is not None:
+            bias = bias + self.bias.float()
+        shape = [1] * x.dim()
+        shape[self.dim] = -1
+        return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
+
+
+class PReLU(nn.Module):
+    """Per-channel parametric ReLU over the channel axis 1."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.empty(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        alpha = self.alpha.to(x.dtype).view(1, -1, *([1] * (x.dim() - 2)))
+        return torch.where(x >= 0, x, alpha * x)
+
+
+class ConvBN(nn.Module):
+    """Bias-free conv + folded BatchNorm (eps 1e-3) + optional SiLU."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1, s: int = 1, p: int = 0,
+                 groups: int = 1, act: bool = True, eps: float = 1e-3):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, k, s, p, groups=groups, bias=False)
+        self.bn = BatchNorm(cout, eps)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return F.silu(x) if self.act else x
+
+
+def nearest_upsample(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest-neighbour x``scale`` upsample of an NCHW tensor."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def _linear_resize_matrix(in_size: int, out_size: int, align_corners: bool,
+                          dtype: torch.dtype, device) -> torch.Tensor:
+    """(out, in) row-stochastic bilinear interpolation matrix, with the JAX
+    package's source-coordinate clamp (``F.interpolate`` clamps differently)."""
+    if out_size == 1:
+        src = torch.zeros(1, device=device)
+    elif align_corners:
+        src = torch.arange(out_size, dtype=torch.float32, device=device) * (
+            (in_size - 1) / (out_size - 1))
+    else:
+        scale = in_size / out_size
+        src = ((torch.arange(out_size, dtype=torch.float32, device=device) + 0.5)
+               * scale - 0.5).clamp(0.0, in_size - 1)
+    lo = src.floor().long().clamp(0, in_size - 1)
+    hi = (lo + 1).clamp(0, in_size - 1)
+    frac = src - lo.float()
+    rows = torch.arange(out_size, device=device)
+    m = torch.zeros(out_size, in_size, device=device)
+    m.index_put_((rows, lo), 1.0 - frac, accumulate=True)
+    m.index_put_((rows, hi), frac, accumulate=True)
+    return m.to(dtype)
+
+
+def bilinear_resize(x: torch.Tensor, out_hw: Tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize NCHW -> (B, C, H', W') as two interpolation matmuls."""
+    _, _, h, w = x.shape
+    mh = _linear_resize_matrix(h, out_hw[0], align_corners, x.dtype, x.device)
+    mw = _linear_resize_matrix(w, out_hw[1], align_corners, x.dtype, x.device)
+    return torch.einsum("oh,bchw,pw->bcop", mh, x, mw)
+
+
+def max_pool(x: torch.Tensor, window: int, strides: int = 1, padding: int = 0) -> torch.Tensor:
+    """Max pool NCHW; the padding acts as -inf, as in the JAX package."""
+    return F.max_pool2d(x, window, strides, padding)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Fill every parameter and buffer of ``model`` from ``generator``.
+
+    Lecun-normal conv/linear weights and zero biases, identity BatchNorm and
+    LayerNorm, PReLU slope 0.25; a module with ``_init_extra(generator)``
+    then sets its own special values (positional tables, head biases).
+    """
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            if m.weight is not None:
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, PReLU):
+            m.alpha.fill_(0.25)
+    for m in model.modules():
+        if hasattr(m, "_init_extra"):
+            m._init_extra(generator)
+
+
+def materialize(model: nn.Module, device: torch.device, seed: int = 0) -> nn.Module:
+    """Allocate a module built on the meta device on ``device`` and fill it
+    from a ``torch.Generator`` on that device seeded with ``seed``."""
+    model.to_empty(device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    init_weights(model, gen)
+    return model.eval()
+
+
+def build_on(device: torch.device, factory, seed: int = 0) -> nn.Module:
+    """``factory()`` constructed without allocating, then materialized."""
+    with torch.device("meta"):
+        model = factory()
+    return materialize(model, device, seed)

@@ -1,0 +1,71 @@
+"""Package rules of the port: it imports neither JAX nor ``prpe_tpu``, and its
+entry points run on CUDA unless the caller asks for the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "prpe_tpu")
+
+_GUARDED_RUN = """
+import importlib, pkgutil, sys
+for name in {forbidden!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import prpe_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(prpe_tpu_torch.__path__, "prpe_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import torch
+from prpe_tpu_torch.core.config import CascadeConfig, DetectionConfig, PoseConfig
+from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
+pose = PoseConfig(input_size=(32, 32), vit_hidden=16, vit_layers=1, vit_heads=2)
+model = CascadeModel(DetectionConfig(pre_nms_top_k=16), pose, irnet_layers=18, device="cpu")
+run = build_cascade_runner(model, CascadeConfig(max_persons=2, max_faces=2, conf_threshold=0.0),
+                           pose_capacity=2, device="cpu")
+res = run(torch.rand(1, 64, 64, 3), torch.zeros(2, 512))
+assert res.pose_keypoints.shape == (2, 17, 2) and bool(torch.isfinite(res.pose_keypoints).all())
+print("imported", len(mods), "modules")
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _GUARDED_RUN.format(forbidden=FORBIDDEN)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "imported" in proc.stdout
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*(ROOT / "prpe_tpu_torch").rglob("*.py"),
+                                       ROOT / "chip_smoke.py"]))
+def test_no_forbidden_import_statement(path):
+    """Static check, for imports inside functions the guarded run never calls."""
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a GPU and without device='cpu' the entry points raise."""
+    from prpe_tpu_torch.core.config import DetectionConfig, PoseConfig
+    from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pose = PoseConfig(input_size=(32, 32), vit_hidden=16, vit_layers=1, vit_heads=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CascadeModel(DetectionConfig(), pose, irnet_layers=18)
+    model = CascadeModel(DetectionConfig(), pose, irnet_layers=18, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_cascade_runner(model)
