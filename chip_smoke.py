@@ -7,16 +7,24 @@ Builds the CUDA kernels from ``prpe_tpu_torch/csrc/`` (into
 exit on the first fault:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (NMS keep masks equal; packed MHSA within
-   2e-2 in bf16 and 1e-4 in fp32 on unit-scale outputs), with its time, the
-   plain version's time, the library call's time where there is one, and
-   the least time the card could take for the same work;
+   the serving path's shapes (NMS keep masks equal; packed and (B, H, T, D)
+   MHSA within 2e-2 in bf16 and 1e-4 in fp32 on unit-scale outputs; the
+   fused LN -> MHSA half-block within 5e-2 in bf16 and 2e-4 in fp32), with
+   its time, the plain version's time, the library call's time where there
+   is one, and the least time the card could take for the same work; then
+   every kernel at odd shapes;
 2. reference: a tiny fp32 cascade on the card against the same cascade on
    the CPU (where the kernels' plain versions run);
-3. cascade: the full-width bf16 cascade (two YOLOv11-n at 640^2, IR-50,
-   ViTPose-B) with random seeded weights, once with every launch counter at
-   zero to show the path went through both kernels, then images/s at batch
-   32 and 128 and the kernels that take the card's time.
+3. attn_modes: for each ``PRPE_ATTN_MODE`` of ``tools/bench_attention.py``,
+   a tiny fp32 ViTPose on the card against the CPU, then the full-width
+   ViTPose-B bf16 forward at batch 128: ms per forward and the launches of
+   each kernel in one forward;
+4. cascade: the full-width bf16 cascade (two YOLOv11-n at 640^2, IR-50,
+   ViTPose-B) with random seeded weights, in the default attention mode
+   and under ``pallas_lnfused``: each once with every launch counter at zero
+   to show the path went through its kernels, then images/s at batch 32
+   and 128; the default mode also profiles the kernels that take the card's
+   time.
 
 Every phase prints one JSON line with the card's name and power limit. The
 last two lines are the ``kernels`` summary and ``{"ok": true, ...}``.
@@ -24,7 +32,9 @@ last two lines are the ``kernels`` summary and ``{"ok": true, ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -36,6 +46,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: outside the tensor cores
 NMS_OPS_PER_PAIR = 14  # 4 min/max, 2 sub, 2 clamp, mul, 2 add/sub, eps add, div, compare
+
+# tools/bench_attention.py's modes, and the kernel counter each one moves
+ATTN_MODES = {"einsum": None, "einsum_bf16sm": None, "pallas": "mhsa_bhtd",
+              "pallas_unrolled": "mhsa_bhtd", "pallas_bh": "mhsa_bhtd",
+              "pallas_packed": "mhsa", "pallas_lnfused": "ln_mhsa"}
 
 CARD = ""
 
@@ -70,6 +85,33 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
 def bound_ms(nbytes: float, ops: float, peak: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def attn_mode(mode: str):
+    """``PRPE_ATTN_MODE=mode`` (and no legacy alias) inside the block; the
+    caller's environment afterwards."""
+    saved = {k: os.environ.pop(k, None) for k in ("PRPE_ATTN_MODE", "PRPE_FUSED_ATTENTION")}
+    os.environ["PRPE_ATTN_MODE"] = mode
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def expected_launches(mode: str, layers: int, nms: int = 0):
+    """Every counter, as a path of ``layers`` ViT blocks under ``mode`` (plus
+    ``nms`` NMS launches) must leave it."""
+    from prpe_tpu_torch.ops.kernels import launches
+
+    want = dict.fromkeys(launches, 0)
+    want["nms"] = nms
+    if ATTN_MODES[mode]:
+        want[ATTN_MODES[mode]] = layers
+    return want
 
 
 # ---------------------------------------------------------------- kernels ---
@@ -117,31 +159,99 @@ def phase_nms(gen, device, b: int, k: int, thr: float = 0.65):
     return row
 
 
-def phase_mhsa(gen, device, dtype, b: int = 32, t: int = 192, h: int = 12, d: int = 64):
+def phase_mhsa(gen, device, dtype, layout: str, b: int = 32, t: int = 192, h: int = 12,
+               d: int = 64):
+    """The attention kernel over one layout: ``packed`` (B, T, H*D), K2 of
+    the default mode, or ``bhtd`` (B, H, T, D), K3 of the ``pallas``,
+    ``pallas_unrolled`` and ``pallas_bh`` modes. SDPA takes the same
+    tensors, as (B, H, T, D) views."""
     import torch.nn.functional as F
 
     from prpe_tpu_torch.ops.kernels import launches
-    from prpe_tpu_torch.ops.kernels.attention import mhsa_packed, mhsa_packed_plain
+    from prpe_tpu_torch.ops.kernels import attention as attn
 
-    q, k, v = (torch.randn(b, t, h * d, generator=gen, device=device).to(dtype) for _ in range(3))
-    before = launches["mhsa"]
-    o = mhsa_packed(q, k, v, h)
+    if layout == "packed":
+        name, counter, shape = "mhsa_packed", "mhsa", (b, t, h * d)
+        kernel = lambda q, k, v: attn.mhsa_packed(q, k, v, h)  # noqa: E731
+        plain = lambda q, k, v: attn.mhsa_packed_plain(q, k, v, h)  # noqa: E731
+        heads = lambda x: x.view(b, t, h, d).transpose(1, 2)  # noqa: E731
+    else:
+        name, counter, shape = "mhsa_bhtd", "mhsa_bhtd", (b, h, t, d)
+        kernel, plain, heads = attn.mhsa_bhtd, attn.mhsa_bhtd_plain, (lambda x: x)
+    q, k, v = (torch.randn(*shape, generator=gen, device=device).to(dtype) for _ in range(3))
+    before = launches[counter]
+    o = kernel(q, k, v)
     torch.cuda.synchronize()
-    if launches["mhsa"] != before + 1:
-        fail("mhsa_packed did not count its launch")
-    want = mhsa_packed_plain(q, k, v, h)
-    err = float((o.float() - want.float()).abs().max())
+    if launches[counter] != before + 1:
+        fail(f"{name} did not count its launch")
+    err = float((o.float() - plain(q, k, v).float()).abs().max())
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     if not err <= tol:
-        fail(f"mhsa_packed {dtype} max abs err {err} > {tol}")
-    ms = time_ms(lambda: mhsa_packed(q, k, v, h))
-    plain_ms = time_ms(lambda: mhsa_packed_plain(q, k, v, h))
-    heads = lambda x: x.view(b, t, h, d).transpose(1, 2)  # noqa: E731
+        fail(f"{name} {dtype} max abs err {err} > {tol}")
+    ms = time_ms(lambda: kernel(q, k, v))
+    plain_ms = time_ms(lambda: plain(q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)))
     bnd, by = bound_ms(4 * q.numel() * q.element_size(), 4 * b * h * t * t * d, PEAK_FLOPS[dtype])
-    row = dict(name="mhsa_packed", dtype=str(dtype).replace("torch.", ""), B=b, T=t, H=h, D=d,
+    row = dict(name=name, dtype=str(dtype).replace("torch.", ""), B=b, T=t, H=h, D=d,
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                library_ms=library_ms)
+    emit("kernel", **row)
+    return row
+
+
+def ln_mhsa_inputs(b: int, t: int, c: int, dtype, gen, device):
+    """x ~ N(0, 1) in ``dtype``; fp32 LayerNorm scale ~ N(1, 0.1) and shift ~
+    N(0, 0.1); four (out, in) fp32 weights ~ N(0, 1/C) with biases ~
+    N(0, 0.02) (the JAX package's own test of this kernel)."""
+    def n(*shape, mean=0.0, std=1.0):
+        return mean + std * torch.randn(*shape, generator=gen, device=device)
+
+    x = n(b, t, c).to(dtype)
+    params = [n(c, mean=1.0, std=0.1), n(c, std=0.1)]
+    for _ in range(4):
+        params += [n(c, c, std=c ** -0.5), n(c, std=0.02)]
+    return x, params
+
+
+def phase_ln_mhsa(gen, device, dtype, b: int, t: int = 192, c: int = 768, h: int = 12):
+    """The fused half-block of ``pallas_lnfused`` at ViT-B width. No single
+    PyTorch call computes it; ``composed_library_ms`` times the library
+    composition of the same function (layer_norm, three linears, SDPA, a
+    linear and the residual add, parameters in ``dtype``)."""
+    import torch.nn.functional as F
+
+    from prpe_tpu_torch.ops.kernels import launches
+    from prpe_tpu_torch.ops.kernels.ln_mhsa import fused_ln_mhsa, ln_mhsa_plain
+
+    x, params = ln_mhsa_inputs(b, t, c, dtype, gen, device)
+    before = launches["ln_mhsa"]
+    o = fused_ln_mhsa(x, *params, heads=h)
+    torch.cuda.synchronize()
+    if launches["ln_mhsa"] != before + 1:
+        fail("fused_ln_mhsa did not count its launch")
+    err = float((o.float() - ln_mhsa_plain(x, *params, heads=h).float()).abs().max())
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+    if not err <= tol:
+        fail(f"fused_ln_mhsa {dtype} B={b} max abs err {err} > {tol}")
+    ms = time_ms(lambda: fused_ln_mhsa(x, *params, heads=h), runs=10)
+    plain_ms = time_ms(lambda: ln_mhsa_plain(x, *params, heads=h), runs=10)
+    lw, lb, wq, bq, wk, bk, wv, bv, wo, bo = (p.to(dtype) for p in params)
+    heads = lambda y: y.view(b, t, h, c // h).transpose(1, 2)  # noqa: E731
+
+    def composed():
+        xn = F.layer_norm(x, (c,), lw, lb, 1e-12)
+        o = F.scaled_dot_product_attention(heads(F.linear(xn, wq, bq)), heads(F.linear(xn, wk, bk)),
+                                           heads(F.linear(xn, wv, bv)))
+        return x + F.linear(o.transpose(1, 2).reshape(b, t, c), wo, bo)
+
+    composed_ms = time_ms(composed, runs=10)
+    es = x.element_size()
+    nbytes = 2 * x.numel() * es + 4 * c * c * es + 6 * c * 4
+    ops = b * (4 * 2 * t * c * c + 4 * h * t * t * (c // h))
+    bnd, by = bound_ms(nbytes, ops, PEAK_FLOPS[dtype])
+    row = dict(name="ln_mhsa", dtype=str(dtype).replace("torch.", ""), B=b, T=t, C=c, H=h,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+               library_ms=None, composed_library_ms=composed_ms)
     emit("kernel", **row)
     return row
 
@@ -149,8 +259,12 @@ def phase_mhsa(gen, device, dtype, b: int = 32, t: int = 192, h: int = 12, d: in
 def phase_odd_shapes(gen, device) -> None:
     """Kernels against their plain versions away from the serving shapes:
     K not a multiple of 32, T not a multiple of the 64-key tile, every head
-    dim, the longest sequence. Correctness only."""
-    from prpe_tpu_torch.ops.kernels.attention import mhsa_packed, mhsa_packed_plain
+    dim, the longest sequence; for the half-block, B*T rows and C columns
+    that are not multiples of the GEMM tiles. Correctness only."""
+    from prpe_tpu_torch.ops.kernels.attention import (
+        mhsa_bhtd, mhsa_bhtd_plain, mhsa_packed, mhsa_packed_plain,
+    )
+    from prpe_tpu_torch.ops.kernels.ln_mhsa import fused_ln_mhsa, ln_mhsa_plain
     from prpe_tpu_torch.ops.kernels.nms import nms_keep, nms_keep_plain
 
     checked = []
@@ -168,6 +282,21 @@ def phase_odd_shapes(gen, device) -> None:
             if not err <= tol:
                 fail(f"mhsa_packed {dtype} at B={b} T={t} H={h} D={d}: max abs err {err} > {tol}")
             checked.append(f"mhsa {str(dtype)[6:]} B={b} T={t} H={h} D={d} err={err:.3g}")
+            q, k, v = (x.view(b, t, h, d).transpose(1, 2).contiguous() for x in (q, k, v))
+            err = float((mhsa_bhtd(q, k, v).float() - mhsa_bhtd_plain(q, k, v).float())
+                        .abs().max())
+            if not err <= tol:
+                fail(f"mhsa_bhtd {dtype} at B={b} T={t} H={h} D={d}: max abs err {err} > {tol}")
+            checked.append(f"mhsa_bhtd {str(dtype)[6:]} B={b} T={t} H={h} D={d} err={err:.3g}")
+    for b, t, c, h in ((2, 24, 32, 2), (3, 10, 64, 4), (2, 65, 64, 1), (1, 200, 96, 3),
+                       (3, 77, 256, 2)):
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+            x, params = ln_mhsa_inputs(b, t, c, dtype, gen, device)
+            err = float((fused_ln_mhsa(x, *params, heads=h).float()
+                         - ln_mhsa_plain(x, *params, heads=h).float()).abs().max())
+            if not err <= tol:
+                fail(f"fused_ln_mhsa {dtype} at B={b} T={t} C={c} H={h}: max abs err {err} > {tol}")
+            checked.append(f"ln_mhsa {str(dtype)[6:]} B={b} T={t} C={c} H={h} err={err:.3g}")
     emit("odd_shapes", checked=checked)
 
 
@@ -231,9 +360,57 @@ def phase_reference(device) -> None:
     emit("reference", **{f"max_abs_err.{k}": v for k, v in errs.items()})
 
 
-def phase_cascade(device, pose=None, irnet_layers: int = 50, size: int = 640,
-                  batches=((32, 20), (128, 8))):
-    """The full-width cascade unless a smaller ``pose`` / ``size`` is given."""
+def phase_attn_modes(device, batch: int = 128):
+    """Each attention mode of the ViT: (a) a tiny fp32 ViTPose (2 layers,
+    hidden 64, 4 heads, 64x48) on the card against the same weights on the
+    CPU, heatmaps within 1e-4 of their largest magnitude (at least 1);
+    (b) the full-width ViTPose-B bf16 forward at ``batch`` crops of 256x192:
+    the launches of one forward, every counter at zero before it, and the
+    ms per forward. Returns the launches per mode."""
+    from prpe_tpu_torch.nn.common import build_on
+    from prpe_tpu_torch.nn.vit import ViTPose
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    tiny_kw = dict(image_size=(64, 48), hidden=64, layers=2, heads=4)
+    tiny_cpu = build_on(torch.device("cpu"), lambda: ViTPose(**tiny_kw), seed=5)
+    tiny_gpu = build_on(device, lambda: ViTPose(**tiny_kw))
+    tiny_gpu.load_state_dict(tiny_cpu.state_dict())
+    crops = torch.randn(3, 3, 64, 48, generator=torch.Generator().manual_seed(6))
+    crops = crops.permute(0, 2, 3, 1)
+    full = build_on(device, lambda: ViTPose(dtype=torch.bfloat16), seed=7)
+    # crops as the cascade makes them: an NHWC view of channels-first memory
+    x = torch.rand(batch, 3, 256, 192, generator=torch.Generator(device=device).manual_seed(8),
+                   device=device).permute(0, 2, 3, 1)
+    counts, ms, errs = {}, {}, {}
+    for mode in ATTN_MODES:
+        with attn_mode(mode), torch.inference_mode():
+            want = tiny_cpu(crops)
+            got = tiny_gpu(crops.to(device)).cpu()
+            errs[mode] = float((got - want).abs().max())
+            tol = 1e-4 * max(1.0, float(want.abs().max()))
+            if not errs[mode] <= tol:
+                fail(f"attn_modes: {mode} tiny ViTPose differs by {errs[mode]} > {tol} "
+                     "between card and CPU")
+            reset_launches()
+            hm = full(x)
+            torch.cuda.synchronize()
+            counts[mode] = dict(launches)
+            expected = expected_launches(mode, 12)
+            if counts[mode] != expected:
+                fail(f"attn_modes: {mode} launched {counts[mode]}, expected {expected}")
+            if hm.shape != (batch, 17, 64, 48) or not bool(torch.isfinite(hm).all()):
+                fail(f"attn_modes: {mode} heatmaps of shape {tuple(hm.shape)} or not finite")
+            ms[mode] = time_ms(lambda: full(x), runs=5, warmup=2)
+    emit("attn_modes", model=f"ViTPose-B bf16 b{batch} 256x192", ms_per_forward=ms,
+         launches_per_forward=counts, tiny_fp32_max_abs_err=errs)
+    return counts
+
+
+def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
+                  irnet_layers: int = 50, size: int = 640, batches=((32, 20), (128, 8))):
+    """The full-width cascade unless a smaller ``pose`` / ``size`` is given,
+    once per attention mode; the first mode is also profiled. Returns the
+    launches of one call per mode."""
     from prpe_tpu_torch.core.config import CascadeConfig, DetectionConfig, PoseConfig
     from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
     from prpe_tpu_torch.ops.kernels import launches, reset_launches
@@ -246,41 +423,49 @@ def phase_cascade(device, pose=None, irnet_layers: int = 50, size: int = 640,
     gen = torch.Generator(device=device).manual_seed(1)
     gallery = torch.nn.functional.normalize(
         torch.randn(32, 512, generator=gen, device=device), dim=-1)
+    images = {b: torch.rand(b, size, size, 3, generator=gen, device=device).to(torch.bfloat16)
+              for b, _ in batches}
     init_s = time.perf_counter() - t0
 
-    counts, rates = {}, {}
-    for batch, iters in batches:
-        images = torch.rand(batch, size, size, 3, generator=gen, device=device).to(torch.bfloat16)
-        run = build_cascade_runner(model, cfg, pose_capacity=batch, device=device)
-        if batch == batches[0][0]:
-            # the main path, once, with every counter at zero
-            reset_launches()
-            res = run(images, gallery)
-            torch.cuda.synchronize()
-            counts = dict(launches)
-            want = {"nms": 2, "mhsa": pose.vit_layers}
-            if counts != want:
-                fail(f"main path launched {counts}, expected {want}")
-            check_result(res, batch, cfg.max_persons, cfg.max_faces, batch, pose.num_keypoints)
-            profile = profile_top(lambda: run(images, gallery))
-        for _ in range(2):
-            run(images, gallery)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(iters):
-            out = run(images, gallery)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        check_result(out, batch, cfg.max_persons, cfg.max_faces, batch, pose.num_keypoints)
-        rates[batch] = batch * iters / dt
-    emit("cascade", metric=f"face_gated_pose_cascade_{size}_throughput", unit="images/sec",
-         images_per_s={f"b{b}": r for b, r in rates.items()}, launches_per_call=counts,
-         init_s=init_s, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    # busy share: kernel time of one profiled call over one timed call's wall time
-    b0 = batches[0][0]
-    wall_ms = 1e3 * b0 / rates[b0]
-    emit(f"profile_b{b0}", wall_ms_per_call=wall_ms,
-         device_busy_share=profile.get("kernel_ms", 0.0) / wall_ms, top_device_ms=profile)
+    counts = {}
+    for mode in modes:
+        rates = {}
+        with attn_mode(mode):
+            for batch, iters in batches:
+                run = build_cascade_runner(model, cfg, pose_capacity=batch, device=device)
+                if batch == batches[0][0]:
+                    # the main path, once, with every counter at zero
+                    reset_launches()
+                    res = run(images[batch], gallery)
+                    torch.cuda.synchronize()
+                    counts[mode] = dict(launches)
+                    want = expected_launches(mode, pose.vit_layers, nms=2)
+                    if counts[mode] != want:
+                        fail(f"main path under {mode} launched {counts[mode]}, expected {want}")
+                    check_result(res, batch, cfg.max_persons, cfg.max_faces, batch,
+                                 pose.num_keypoints)
+                    if mode == modes[0]:
+                        profile = profile_top(lambda: run(images[batch], gallery))
+                for _ in range(2):
+                    run(images[batch], gallery)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(iters):
+                    out = run(images[batch], gallery)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t
+                check_result(out, batch, cfg.max_persons, cfg.max_faces, batch, pose.num_keypoints)
+                rates[batch] = batch * iters / dt
+        emit("cascade", metric=f"face_gated_pose_cascade_{size}_throughput", unit="images/sec",
+             attn_mode=mode, images_per_s={f"b{b}": r for b, r in rates.items()},
+             launches_per_call=counts[mode], init_s=init_s,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if mode == modes[0]:
+            # busy share: kernel time of one profiled call over one timed call's wall time
+            b0 = batches[0][0]
+            wall_ms = 1e3 * b0 / rates[b0]
+            emit(f"profile_b{b0}", attn_mode=mode, wall_ms_per_call=wall_ms,
+                 device_busy_share=profile.get("kernel_ms", 0.0) / wall_ms, top_device_ms=profile)
     return counts
 
 
@@ -316,6 +501,9 @@ def main() -> int:
           flush=True)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # fp32 references stay fp32 on the card (no TF32 in matmuls or convolutions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     logs = build_all()
@@ -327,21 +515,38 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(0)
     nms_rows = [phase_nms(gen, device, 32, k) for k in (256, 1024)]
-    mhsa_rows = [phase_mhsa(gen, device, dt) for dt in (torch.bfloat16, torch.float32)]
+    mhsa_rows = [phase_mhsa(gen, device, dt, "packed") for dt in (torch.bfloat16, torch.float32)]
+    bhtd_rows = [phase_mhsa(gen, device, dt, "bhtd") for dt in (torch.bfloat16, torch.float32)]
+    ln_rows = [phase_ln_mhsa(gen, device, dt, b) for dt in (torch.bfloat16, torch.float32)
+               for b in (32, 128)]
     phase_odd_shapes(gen, device)
     phase_reference(device)
+    mode_counts = phase_attn_modes(device)
     counts = phase_cascade(device)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    src, pallas = "prpe_tpu_torch/csrc/", "prpe_tpu/ops/pallas/"
     kernels = [
-        dict(name="nms_keep", route="cuda", source="prpe_tpu_torch/csrc/nms.cu",
-             replaces="prpe_tpu/ops/pallas/nms_kernel.py:42", launches=counts["nms"],
-             **{k: nms_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms")}),
-        dict(name="mhsa_packed", route="cuda", source="prpe_tpu_torch/csrc/mhsa.cu",
-             replaces="prpe_tpu/ops/pallas/attention_kernel.py:92", launches=counts["mhsa"],
-             **{k: mhsa_rows[0][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "bound_by", "library_ms")}),
+        dict(name="nms_keep", route="cuda", source=src + "nms.cu",
+             replaces=pallas + "nms_kernel.py:42", launches=counts["pallas_packed"]["nms"],
+             **{k: nms_rows[0][k] for k in keys}),
+        dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
+             replaces=pallas + "attention_kernel.py:92",
+             launches=counts["pallas_packed"]["mhsa"], **{k: mhsa_rows[0][k] for k in keys}),
     ]
+    # one kernel serves the three (B, H, T, D) Pallas kernels; launches per
+    # ViTPose-B forward under the mode that selects each
+    for variant, mode, line in (("batched", "pallas", 57), ("unrolled", "pallas_unrolled", 42),
+                                ("bh", "pallas_bh", 76)):
+        kernels.append(dict(name=f"mhsa_bhtd[{variant}]", route="cuda", source=src + "mhsa.cu",
+                            replaces=f"{pallas}attention_kernel.py:{line}", attn_mode=mode,
+                            launches=mode_counts[mode]["mhsa_bhtd"],
+                            **{k: bhtd_rows[0][k] for k in keys}))
+    kernels.append(dict(name="ln_mhsa", route="cuda", source=src + "ln_mhsa.cu",
+                        replaces=pallas + "attention_kernel.py:115", attn_mode="pallas_lnfused",
+                        launches=counts["pallas_lnfused"]["ln_mhsa"],
+                        composed_library_ms=ln_rows[0]["composed_library_ms"],
+                        **{k: ln_rows[0][k] for k in keys}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

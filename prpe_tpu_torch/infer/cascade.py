@@ -5,8 +5,9 @@ persons.
 
 Every shape is static (top-F and top-G compactions with validity masks in
 place of data-dependent branches), so a later change can capture the runner
-in a CUDA graph. The two kernels of the path are the greedy NMS (twice per
-call) and the packed MHSA (once per ViT block).
+in a CUDA graph. The kernels of the path are the greedy NMS (twice per
+call) and, once per ViT block, the attention kernel that ``PRPE_ATTN_MODE``
+selects (``nn/vit.py``): the packed MHSA by default.
 """
 
 from __future__ import annotations

@@ -1,14 +1,26 @@
 """ViTPose with the simple decoder (``prpe_tpu/nn/vit.py``).
 
 ViT-B/16 over 256x192 crops: patch-embed conv (k = s = 16, padding 2), one
-folded (P, C) positional table, pre-LN blocks whose attention runs through
-the packed MHSA kernel in the natural (B, T, C) layout, then ReLU ->
-bilinear x4 -> 3x3 conv. ``ViTPose`` takes NHWC crops and returns heatmaps
-(B, K, H, W).
+folded (P, C) positional table, pre-LN blocks, then ReLU -> bilinear x4 ->
+3x3 conv. ``ViTPose`` takes NHWC crops and returns heatmaps (B, K, H, W).
+
+The attention of every block follows ``PRPE_ATTN_MODE``, read at forward
+time as the JAX package reads it at trace time (:func:`attn_mode`):
+
+- ``pallas_packed`` (default): the packed kernel over (B, T, C), no
+  transposes (``mhsa_packed``);
+- ``pallas``, ``pallas_unrolled``, ``pallas_bh`` and any other
+  ``pallas_<x>``: the (B, H, T, D) kernel (``mhsa_bhtd``), with the
+  transposes around it that these modes pay in the JAX package;
+- ``pallas_lnfused``: the whole LN -> q/k/v -> attention -> proj ->
+  residual half-block in one kernel (``fused_ln_mhsa``);
+- ``einsum_bf16sm``: plain matmuls, softmax in the activation dtype;
+- anything else: plain matmuls, fp32 softmax cast back.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
@@ -16,9 +28,40 @@ import torch.nn.functional as F
 from torch import nn
 
 from prpe_tpu_torch.nn.common import Conv2d, LayerNorm, Linear, bilinear_resize, fast_gelu
-from prpe_tpu_torch.ops.kernels.attention import mhsa_packed
+from prpe_tpu_torch.ops.kernels.attention import mhsa_bhtd, mhsa_packed
+from prpe_tpu_torch.ops.kernels.ln_mhsa import fused_ln_mhsa
 
 _LN_EPS = 1e-12
+
+
+def attn_mode() -> str:
+    """``PRPE_ATTN_MODE`` (default ``pallas_packed``); the legacy
+    ``PRPE_FUSED_ATTENTION=1`` means ``pallas_unrolled`` when the mode is
+    unset."""
+    mode = os.environ.get("PRPE_ATTN_MODE", "pallas_packed")
+    if os.environ.get("PRPE_FUSED_ATTENTION") == "1" and "PRPE_ATTN_MODE" not in os.environ:
+        mode = "pallas_unrolled"
+    return mode
+
+
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                     softmax_in_input_dtype: bool) -> torch.Tensor:
+    """The JAX package's einsum path over packed (B, T, H*D) tensors, with
+    its roundings: logits from a matmul in the input dtype, scaled by
+    d^-1/2 rounded to that dtype; then either an fp32 softmax cast back, or
+    ``jax.nn.softmax`` step by step in the input dtype (max, exp, fp32 sum
+    rounded back, divide); P V in the input dtype."""
+    b, t, c = q.shape
+    d = c // heads
+    split = lambda x: x.view(b, t, heads, d).transpose(1, 2)  # noqa: E731
+    scale = torch.tensor(d ** -0.5, dtype=q.dtype).item()
+    s = (split(q) @ split(k).transpose(-1, -2)) * scale
+    if softmax_in_input_dtype:
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.float().sum(-1, keepdim=True).to(e.dtype)
+    else:
+        p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    return (p @ split(v)).transpose(1, 2).reshape(b, t, c)
 
 
 class MHSA(nn.Module):
@@ -31,7 +74,18 @@ class MHSA(nn.Module):
         self.proj = Linear(hidden, hidden)
 
     def forward(self, x):
-        out = mhsa_packed(self.q(x), self.k(x), self.v(x), self.heads)
+        b, t, c = x.shape
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        mode = attn_mode()
+        if not mode.startswith("pallas"):
+            out = einsum_attention(q, k, v, self.heads, mode == "einsum_bf16sm")
+        elif (mode[len("pallas_"):] or "batched") == "packed":
+            out = mhsa_packed(q, k, v, self.heads)
+        else:
+            def heads(y):  # (B, T, C) -> contiguous (B, H, T, D)
+                return y.view(b, t, self.heads, -1).transpose(1, 2).contiguous()
+
+            out = mhsa_bhtd(heads(q), heads(k), heads(v)).transpose(1, 2).reshape(b, t, c)
         return self.proj(out)
 
 
@@ -45,7 +99,15 @@ class ViTBlock(nn.Module):
         self.fc2 = Linear(hidden * mlp_ratio, hidden)
 
     def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+        if attn_mode() == "pallas_lnfused":
+            # the JAX package runs this kernel in inference only; the port
+            # serves only, so its gate always holds
+            a = self.attn
+            x = fused_ln_mhsa(x, self.ln1.weight, self.ln1.bias, a.q.weight,
+                              a.q.bias, a.k.weight, a.k.bias, a.v.weight, a.v.bias,
+                              a.proj.weight, a.proj.bias, a.heads, self.ln1.eps)
+        else:
+            x = x + self.attn(self.ln1(x))
         return x + self.fc2(fast_gelu(self.fc1(self.ln2(x))))
 
 
@@ -70,7 +132,11 @@ class ViTPoseBackbone(nn.Module):
     def forward(self, x):
         x = self.patch_embed(x)  # (B, C, gh, gw)
         b, c, gh, gw = x.shape
-        x = x.flatten(2).transpose(1, 2) + self.pos_embed.to(x.dtype)[None]
+        # tokens contiguous in (B, T, C): from channels-first crops the
+        # transposed view would carry its layout through every residual add
+        # (a copy before each LayerNorm and GEMM), and the kernels take
+        # contiguous tensors only
+        x = x.flatten(2).transpose(1, 2).contiguous() + self.pos_embed.to(x.dtype)[None]
         for i in range(self.layers):
             x = getattr(self, f"block{i}")(x)
         x = self.ln_final(x)

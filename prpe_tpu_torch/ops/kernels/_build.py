@@ -3,11 +3,12 @@ them with ctypes.
 
 Each ``csrc/<name>.cu`` exports plain C entry points and is compiled alone
 by ``nvcc`` into ``build/prpe_tpu_torch/lib<name>-<hash>.so`` at the root of
-the checkout. The hash covers the source and the flags, so an edited source
-is rebuilt. Only sources in the repository are compiled.
+the checkout. The hash covers the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source or header is rebuilt. Only sources in the
+repository are compiled.
 
-Each wrapper adds one to ``launches[<name>]`` where it launches its kernel,
-so a caller can show that a run went through the kernels.
+Each wrapper adds one to its counter in ``launches`` where it launches its
+kernel, so a caller can show that a run went through the kernels.
 """
 
 from __future__ import annotations
@@ -37,10 +38,17 @@ SIGNATURES = {
     "mhsa": {
         "prpe_mhsa_packed_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
         "prpe_mhsa_packed_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "prpe_mhsa_bhtd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        "prpe_mhsa_bhtd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    },
+    "ln_mhsa": {
+        "prpe_ln_mhsa_f32": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
+        "prpe_ln_mhsa_bf16": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
     },
 }
 
-launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
+# one counter per kernel route; ``mhsa`` and ``mhsa_bhtd`` share a library
+launches: Dict[str, int] = {name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa")}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -60,6 +68,8 @@ def _nvcc() -> str:
 def _target(name: str) -> Path:
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

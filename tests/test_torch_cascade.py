@@ -6,6 +6,8 @@ at 128^2, IR-18, a 1-layer ViTPose at 64x48) and one JAX compile per cascade
 config keep this file inside the fast tier. ``conf_threshold=0.0`` makes
 every candidate valid, so both NMS passes scan the full candidate list, and
 the gallery holds two embeddings of detected faces so that some faces match.
+Two more JAX compiles run the cascade with the ViT attention under
+``PRPE_ATTN_MODE=pallas_lnfused`` and ``pallas_bh``.
 """
 
 import importlib.util
@@ -45,8 +47,9 @@ KPT_TOL = 1e-3  # px: argmax keypoints, box-scaled
 
 
 @pytest.fixture(scope="module")
-def slice_pair():
-    """(JAX runner outputs, port outputs) per cascade config, same weights."""
+def slice_models():
+    """The JAX cascade, its variables, the port cascade with the same
+    weights, the images and the gallery."""
     jmodel = JCascadeModel(detection=JDetectionConfig(pre_nms_top_k=64),
                            pose_cfg=JPoseConfig(**POSE), irnet_layers=18)
     variables = random_variables(lambda: jmodel.init(
@@ -67,17 +70,41 @@ def slice_pair():
         emb, _ = pmodel.irnet(((crops - 0.5) / 0.5).flip(-1))
     rand = rng.normal(size=(2, 512)).astype(np.float32)
     gallery = np.concatenate([emb.numpy(), rand / np.linalg.norm(rand, axis=1, keepdims=True)])
+    return jmodel, variables, pmodel, images, gallery
 
+
+def run_both(slice_models, **cfg):
+    """(JAX outputs as numpy, port outputs) of one cascade config, under
+    the current ``PRPE_ATTN_MODE``: a fresh JAX runner traces it anew."""
+    jmodel, variables, pmodel, images, gallery = slice_models
+    jres = jbuild(jmodel, JCascadeConfig(**cfg, **CFG),
+                  pose_capacity=POSE_CAPACITY)(variables, jnp.asarray(images), jnp.asarray(gallery))
+    prun = build_cascade_runner(pmodel, CascadeConfig(**cfg, **CFG),
+                                pose_capacity=POSE_CAPACITY, device="cpu")
+    pres = prun(torch.from_numpy(images), torch.from_numpy(gallery))
+    return (jax.tree_util.tree_map(np.asarray, jres._asdict()), pres), prun
+
+
+@pytest.fixture(scope="module")
+def slice_pair(slice_models):
+    """(JAX runner outputs, port outputs) per cascade config, same weights."""
     out = {}
     for flip in (False, True):
-        jres = jbuild(jmodel, JCascadeConfig(pose_flip_test=flip, **CFG),
-                      pose_capacity=POSE_CAPACITY)(variables, jnp.asarray(images),
-                                                   jnp.asarray(gallery))
-        prun = build_cascade_runner(pmodel, CascadeConfig(pose_flip_test=flip, **CFG),
-                                    pose_capacity=POSE_CAPACITY, device="cpu")
-        pres = prun(torch.from_numpy(images), torch.from_numpy(gallery))
-        out[flip] = (jax.tree_util.tree_map(np.asarray, jres._asdict()), pres)
-    return out, prun, images, gallery
+        out[flip], prun = run_both(slice_models, pose_flip_test=flip)
+    return out, prun, slice_models[3], slice_models[4]
+
+
+@pytest.fixture(scope="module")
+def mode_pairs(slice_models):
+    """(JAX outputs, port outputs) with the ViT attention under two other
+    ``PRPE_ATTN_MODE`` values: the fused half-block and the (B, H, T, D)
+    kernel with one head per TPU program."""
+    out = {}
+    for mode in ("pallas_lnfused", "pallas_bh"):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("PRPE_ATTN_MODE", mode)
+            out[mode], _ = run_both(slice_models)
+    return out
 
 
 def _slot_map(jdet, pdet):
@@ -102,10 +129,7 @@ def _take(x, perm):
     return np.take_along_axis(np.asarray(x), perm.reshape(perm.shape + (1,) * (np.ndim(x) - 2)), 1)
 
 
-@pytest.mark.parametrize("flip", [False, True])
-def test_cascade_fields_match_jax(slice_pair, flip):
-    (pairs, _, _, _) = slice_pair
-    jres, pres = pairs[flip]
+def assert_fields_match(jres, pres):
     maps = {}
     for name in ("persons", "faces"):
         jdet = jres[name]._asdict()
@@ -137,6 +161,17 @@ def test_cascade_fields_match_jax(slice_pair, flip):
         for t in (value if isinstance(value, tuple) else (value,)):
             if t.is_floating_point():
                 assert torch.isfinite(t).all(), field
+
+
+@pytest.mark.parametrize("flip", [False, True])
+def test_cascade_fields_match_jax(slice_pair, flip):
+    (pairs, _, _, _) = slice_pair
+    assert_fields_match(*pairs[flip])
+
+
+@pytest.mark.parametrize("mode", ["pallas_lnfused", "pallas_bh"])
+def test_cascade_fields_match_jax_under_attn_mode(mode_pairs, mode):
+    assert_fields_match(*mode_pairs[mode])
 
 
 def test_flip_changes_keypoints(slice_pair):

@@ -69,3 +69,27 @@ def test_entry_points_default_to_cuda(monkeypatch):
     model = CascadeModel(DetectionConfig(), pose, irnet_layers=18, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_cascade_runner(model)
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` header changes every library's target, so
+    the next build compiles it anew."""
+    from prpe_tpu_torch.ops.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("k")
+    assert _build._target("k") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._target("k") != before
+
+
+@pytest.mark.parametrize("lib", ["nms", "mhsa", "ln_mhsa"])
+def test_every_entry_point_is_defined_in_its_source(lib):
+    """Each C symbol the ctypes bindings declare is defined in its source."""
+    from prpe_tpu_torch.ops.kernels import _build
+
+    source = (_build.CSRC / f"{lib}.cu").read_text()
+    for symbol in _build.SIGNATURES[lib]:
+        assert f"int {symbol}(" in source or f"({symbol}," in source, symbol
