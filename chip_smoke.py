@@ -8,11 +8,15 @@ exit on the first fault:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
    the serving path's shapes (NMS keep masks equal; packed and (B, H, T, D)
-   MHSA within 2e-2 in bf16 and 1e-4 in fp32 on unit-scale outputs; the
-   fused LN -> MHSA half-block within 5e-2 in bf16 and 2e-4 in fp32), with
-   its time, the plain version's time, the library call's time where there
-   is one, and the least time the card could take for the same work; then
-   every kernel at odd shapes;
+   MHSA within 2e-2 in bf16 and 1e-4 in fp32 on unit-scale outputs, bf16 at
+   B = 32 and 128; the fused LN -> MHSA half-block within 5e-2 in bf16 and
+   2e-4 in fp32), with its time, the plain version's time, the library
+   call's time where there is one, the least time the card could take for
+   the same work, and the host time of one wrapper call; then the
+   half-block's stages alone (LayerNorm, one projection, the attention, the
+   output projection with the residual) each beside its library call; then
+   every kernel at odd shapes, the attention at T = 1, 192 (the longest
+   sequence whose logits stay in registers) and 193 for every head dim;
 2. reference: a tiny fp32 cascade on the card against the same cascade on
    the CPU (where the kernels' plain versions run);
 3. attn_modes: for each ``PRPE_ATTN_MODE`` of ``tools/bench_attention.py``,
@@ -27,14 +31,23 @@ exit on the first fault:
    time.
 
 Every phase prints one JSON line with the card's name and power limit. The
-last two lines are the ``kernels`` summary and ``{"ok": true, ...}``.
+last two lines are the ``kernels`` summary and ``{"ok": true, ...}``. The
+build fails the run if ``ptxas`` reports a spill in any kernel.
+
+    python3 chip_smoke.py --kernels-only [--root DIR]
+
+runs the serving-shape kernel rows only, importing ``prpe_tpu_torch`` from
+the checkout at DIR (default: this one), so that two trees can be timed in
+one call on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -80,6 +93,22 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
         events[i + 1].record()
     torch.cuda.synchronize()
     return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(runs))
+
+
+def host_us(fn, calls: int = 20, rounds: int = 7) -> float:
+    """Host time of one call (the wrapper's checks, allocations and
+    launches): the median over ``rounds`` of the host clock around ``calls``
+    calls queued without waiting for the card (the host is shared, so single
+    rounds spread)."""
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per_call)
 
 
 def bound_ms(nbytes: float, ops: float, peak: float):
@@ -194,7 +223,7 @@ def phase_mhsa(gen, device, dtype, layout: str, b: int = 32, t: int = 192, h: in
     bnd, by = bound_ms(4 * q.numel() * q.element_size(), 4 * b * h * t * t * d, PEAK_FLOPS[dtype])
     row = dict(name=name, dtype=str(dtype).replace("torch.", ""), B=b, T=t, H=h, D=d,
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-               library_ms=library_ms)
+               library_ms=library_ms, host_us=host_us(lambda: kernel(q, k, v)))
     emit("kernel", **row)
     return row
 
@@ -251,20 +280,84 @@ def phase_ln_mhsa(gen, device, dtype, b: int, t: int = 192, c: int = 768, h: int
     bnd, by = bound_ms(nbytes, ops, PEAK_FLOPS[dtype])
     row = dict(name="ln_mhsa", dtype=str(dtype).replace("torch.", ""), B=b, T=t, C=c, H=h,
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-               library_ms=None, composed_library_ms=composed_ms)
+               library_ms=None, composed_library_ms=composed_ms,
+               host_us=host_us(lambda: fused_ln_mhsa(x, *params, heads=h)))
     emit("kernel", **row)
     return row
+
+
+def phase_ln_stages(gen, device, b: int, t: int = 192, c: int = 768, h: int = 12):
+    """The half-block's stages alone, bf16, each checked against its plain
+    version and timed beside one library call: the LayerNorm
+    (``F.layer_norm``), one q/k/v projection (``F.linear``), the attention
+    (SDPA) and the output projection with the residual (``F.linear`` and the
+    add). Parameters in bf16 for the library, as in ``composed``; the
+    kernels take the weights in bf16 too, so no cast is timed."""
+    import torch.nn.functional as F
+
+    from prpe_tpu_torch.ops.kernels import launches
+    from prpe_tpu_torch.ops.kernels import attention as attn
+    from prpe_tpu_torch.ops.kernels import ln_mhsa as lm
+
+    dt = torch.bfloat16
+    x, params = ln_mhsa_inputs(b, t, c, dt, gen, device)
+    lw, lb, wq, bq, wk, bk, wv, bv, wo, bo = params
+    wq, wk, wv, wo = (w.to(dt) for w in (wq, wk, wv, wo))
+    lib = [p.to(dt) for p in (lw, lb, bq, bo)]
+    xn = lm.layernorm(x, lw, lb)
+    q, k, v = lm.linear(xn, wq, bq), lm.linear(xn, wk, bk), lm.linear(xn, wv, bv)
+    o = attn.mhsa_packed(q, k, v, h)
+    heads = lambda y: y.view(b, t, h, c // h).transpose(1, 2)  # noqa: E731
+    m, es = b * t, x.element_size()
+    gemm_bytes = (2 * m * c + c * c) * es + c * 4
+    stages = {
+        "layernorm": (lambda: lm.layernorm(x, lw, lb), lambda: lm.layernorm_plain(x, lw, lb),
+                      lambda: F.layer_norm(x, (c,), lib[0], lib[1], 1e-12),
+                      2 * m * c * es + 2 * c * 4, 8 * m * c, "layernorm", 5e-2),
+        "q_projection": (lambda: lm.linear(xn, wq, bq), lambda: lm.linear_plain(xn, wq, bq),
+                         lambda: F.linear(xn, wq, lib[2]), gemm_bytes, 2 * m * c * c,
+                         "linear", 5e-2),
+        "attention": (lambda: attn.mhsa_packed(q, k, v, h),
+                      lambda: attn.mhsa_packed_plain(q, k, v, h),
+                      lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)),
+                      4 * m * c * es, 4 * b * h * t * t * (c // h), "mhsa", 2e-2),
+        "out_projection": (lambda: lm.linear(o, wo, bo, residual=x),
+                           lambda: lm.linear_plain(o, wo, bo, residual=x),
+                           lambda: x + F.linear(o, wo, lib[3]), gemm_bytes + m * c * es,
+                           2 * m * c * c, "linear", 5e-2),
+    }
+    rows = {}
+    for name, (kernel, plain, library, nbytes, ops, counter, tol) in stages.items():
+        before = launches[counter]
+        got = kernel()
+        torch.cuda.synchronize()
+        if launches[counter] != before + 1:
+            fail(f"{name} stage did not count its launch")
+        err = float((got.float() - plain().float()).abs().max())
+        if not err <= tol:
+            fail(f"{name} stage B={b} max abs err {err} > {tol}")
+        bnd, by = bound_ms(nbytes, ops, PEAK_FLOPS[dt])
+        rows[name] = dict(max_abs_err=err, ms=time_ms(kernel), library_ms=time_ms(library),
+                          bound_ms=bnd, bound_by=by)
+    emit("ln_mhsa_stages", dtype="bfloat16", B=b, T=t, C=c, H=h, stages=rows,
+         ms_sum=rows["layernorm"]["ms"] + 3 * rows["q_projection"]["ms"]
+         + rows["attention"]["ms"] + rows["out_projection"]["ms"])
+    return rows
 
 
 def phase_odd_shapes(gen, device) -> None:
     """Kernels against their plain versions away from the serving shapes:
     K not a multiple of 32, T not a multiple of the 64-key tile, every head
-    dim, the longest sequence; for the half-block, B*T rows and C columns
-    that are not multiples of the GEMM tiles. Correctness only."""
+    dim, the longest sequence, and T = 1, 192 and 193 (the bf16 kernel holds
+    the logits of up to 192 keys in registers and streams longer rows) for
+    every head dim; for the half-block and its stages alone, B*T rows and C
+    columns that are not multiples of the GEMM tiles. Correctness only."""
     from prpe_tpu_torch.ops.kernels.attention import (
         mhsa_bhtd, mhsa_bhtd_plain, mhsa_packed, mhsa_packed_plain,
     )
-    from prpe_tpu_torch.ops.kernels.ln_mhsa import fused_ln_mhsa, ln_mhsa_plain
+    from prpe_tpu_torch.ops.kernels.ln_mhsa import (
+        fused_ln_mhsa, layernorm, layernorm_plain, linear, linear_plain, ln_mhsa_plain,
+    )
     from prpe_tpu_torch.ops.kernels.nms import nms_keep, nms_keep_plain
 
     checked = []
@@ -273,7 +366,9 @@ def phase_odd_shapes(gen, device) -> None:
         if not torch.equal(nms_keep(boxes, valid, 0.5), nms_keep_plain(boxes, valid, 0.5)):
             fail(f"nms_keep differs from its plain version at B={b}, K={k}")
         checked.append(f"nms B={b} K={k}")
-    for b, t, h, d in ((2, 24, 2, 16), (3, 200, 4, 32), (2, 65, 3, 64), (1, 1024, 2, 128)):
+    straddle = [(2, t, 2, d) for d in (16, 32, 64, 128) for t in (1, 192, 193)]
+    for b, t, h, d in ((2, 24, 2, 16), (3, 200, 4, 32), (2, 65, 3, 64), (1, 1024, 2, 128),
+                       *straddle):
         for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
             q, k, v = (torch.randn(b, t, h * d, generator=gen, device=device).to(dtype)
                        for _ in range(3))
@@ -297,6 +392,19 @@ def phase_odd_shapes(gen, device) -> None:
             if not err <= tol:
                 fail(f"fused_ln_mhsa {dtype} at B={b} T={t} C={c} H={h}: max abs err {err} > {tol}")
             checked.append(f"ln_mhsa {str(dtype)[6:]} B={b} T={t} C={c} H={h} err={err:.3g}")
+    for b, t, k, n in ((3, 77, 32, 96), (1, 200, 96, 256), (2, 65, 256, 40)):
+        x, params = ln_mhsa_inputs(b, t, k, torch.bfloat16, gen, device)
+        w = torch.randn(n, k, generator=gen, device=device) * k ** -0.5
+        bias = 0.02 * torch.randn(n, generator=gen, device=device)
+        res = torch.randn(b, t, n, generator=gen, device=device).to(torch.bfloat16)
+        got = {"layernorm": (layernorm(x, *params[:2]), layernorm_plain(x, *params[:2])),
+               "linear": (linear(x, w, bias), linear_plain(x, w, bias)),
+               "linear+residual": (linear(x, w, bias, res), linear_plain(x, w, bias, res))}
+        for name, (a, want) in got.items():
+            err = float((a.float() - want.float()).abs().max())
+            if not err <= 5e-2:
+                fail(f"{name} bfloat16 at B={b} T={t} in={k} out={n}: max abs err {err} > 5e-2")
+            checked.append(f"{name} bfloat16 B={b} T={t} in={k} out={n} err={err:.3g}")
     emit("odd_shapes", checked=checked)
 
 
@@ -487,8 +595,32 @@ def profile_top(fn, top: int = 12):
             "top": [list(r) for r in rows[:top]]}
 
 
+def report_build(logs) -> None:
+    """Print each kernel's ``ptxas`` lines (entry, registers, spills, wgmma
+    notes) and fail on a spill or a compiler error."""
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill", "wgmma")) \
+                    or "error" in line.lower():
+                print(f"nvcc {name}: {line.strip()}", flush=True)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                fail(f"ptxas reports a spill in csrc/{name}.cu: {line.strip()}")
+
+
+def b128_keys(row) -> dict:
+    return {f"{k}_b128": row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us")}
+
+
 def main() -> int:
     global CARD
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="run the serving-shape kernel rows only")
+    parser.add_argument("--root", help="import prpe_tpu_torch from the checkout at ROOT")
+    args = parser.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs one CUDA GPU")
     from prpe_tpu_torch.ops.kernels import build_all
@@ -506,33 +638,37 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = build_all()
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"nvcc {name}: {line.strip()}", flush=True)
-    emit("build", seconds=time.perf_counter() - t0)
+    report_build(build_all())
+    emit("build", seconds=time.perf_counter() - t0, root=os.path.abspath(args.root or "."))
 
     gen = torch.Generator(device=device).manual_seed(0)
     nms_rows = [phase_nms(gen, device, 32, k) for k in (256, 1024)]
-    mhsa_rows = [phase_mhsa(gen, device, dt, "packed") for dt in (torch.bfloat16, torch.float32)]
-    bhtd_rows = [phase_mhsa(gen, device, dt, "bhtd") for dt in (torch.bfloat16, torch.float32)]
-    ln_rows = [phase_ln_mhsa(gen, device, dt, b) for dt in (torch.bfloat16, torch.float32)
-               for b in (32, 128)]
+    bf, f32 = torch.bfloat16, torch.float32
+    # bf16 at B = 32 and 128 (the pose stage runs at pose_capacity = batch), fp32 at 32
+    mhsa_rows = [phase_mhsa(gen, device, dt, "packed", b) for dt, b in ((bf, 32), (f32, 32),
+                                                                        (bf, 128))]
+    bhtd_rows = [phase_mhsa(gen, device, dt, "bhtd", b) for dt, b in ((bf, 32), (f32, 32),
+                                                                      (bf, 128))]
+    ln_rows = [phase_ln_mhsa(gen, device, dt, b) for dt in (bf, f32) for b in (32, 128)]
+    if args.kernels_only:
+        return 0
+    for b in (32, 128):
+        phase_ln_stages(gen, device, b)
     phase_odd_shapes(gen, device)
     phase_reference(device)
     mode_counts = phase_attn_modes(device)
     counts = phase_cascade(device)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     src, pallas = "prpe_tpu_torch/csrc/", "prpe_tpu/ops/pallas/"
+    nms = {k: nms_rows[0][k] for k in keys if k != "host_us"}
     kernels = [
         dict(name="nms_keep", route="cuda", source=src + "nms.cu",
-             replaces=pallas + "nms_kernel.py:42", launches=counts["pallas_packed"]["nms"],
-             **{k: nms_rows[0][k] for k in keys}),
+             replaces=pallas + "nms_kernel.py:42", launches=counts["pallas_packed"]["nms"], **nms),
         dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
              replaces=pallas + "attention_kernel.py:92",
-             launches=counts["pallas_packed"]["mhsa"], **{k: mhsa_rows[0][k] for k in keys}),
+             launches=counts["pallas_packed"]["mhsa"], **{k: mhsa_rows[0][k] for k in keys},
+             **b128_keys(mhsa_rows[2])),
     ]
     # one kernel serves the three (B, H, T, D) Pallas kernels; launches per
     # ViTPose-B forward under the mode that selects each
@@ -541,12 +677,13 @@ def main() -> int:
         kernels.append(dict(name=f"mhsa_bhtd[{variant}]", route="cuda", source=src + "mhsa.cu",
                             replaces=f"{pallas}attention_kernel.py:{line}", attn_mode=mode,
                             launches=mode_counts[mode]["mhsa_bhtd"],
-                            **{k: bhtd_rows[0][k] for k in keys}))
+                            **{k: bhtd_rows[0][k] for k in keys}, **b128_keys(bhtd_rows[2])))
     kernels.append(dict(name="ln_mhsa", route="cuda", source=src + "ln_mhsa.cu",
                         replaces=pallas + "attention_kernel.py:115", attn_mode="pallas_lnfused",
                         launches=counts["pallas_lnfused"]["ln_mhsa"],
                         composed_library_ms=ln_rows[0]["composed_library_ms"],
-                        **{k: ln_rows[0][k] for k in keys}))
+                        composed_library_ms_b128=ln_rows[1]["composed_library_ms"],
+                        **{k: ln_rows[0][k] for k in keys}, **b128_keys(ln_rows[1])))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -1,27 +1,55 @@
 // Multi-head self-attention device code, shared by mhsa.cu and ln_mhsa.cu.
 //
-// Per image and head: softmax(Q K^T * d^-1/2) V. Logits accumulate in fp32
-// and are scaled after the dot product; the softmax is fp32; P is rounded to
-// the input dtype before P V, which accumulates in fp32; the output is
-// stored in the input dtype. These are the numerics of every attention body
-// in prpe_tpu/ops/pallas/attention_kernel.py.
+// Replaces the attention of every Pallas body in
+// prpe_tpu/ops/pallas/attention_kernel.py: _mhsa_kernel_packed (K2, through
+// mhsa.cu's packed entry points), _mhsa_kernel_batched, _mhsa_kernel and
+// _mhsa_kernel_bh (K3a-c, through its (B, H, T, D) entry points) and the
+// attention stage of _ln_mhsa_kernel (K4, through ln_mhsa.cu).
+//
+// Per image and head: softmax(Q K^T * d^-1/2) V, with the numerics of those
+// bodies: logits accumulate in fp32 and are scaled after the dot product;
+// the softmax is fp32 over the whole row, expf(s * scale - max) divided by
+// the row sum; P is normalised and only then rounded to the input dtype;
+// P V accumulates in fp32; the output is rounded once.
 //
 // Addressing: element d of token t, head h, image b sits at
 // b * image + h * head + t * token + d (HeadStrides, in elements). The packed
 // (B, T, H*D) layout is {T*C, D, C}; the (B, H, T, D) layout is {H*T*D, T*D, D}.
-// One block per (query tile, head, image) either way.
 //
 // What bounds it on the H100: at the ViT-B shape (T = 192, H = 12, D = 64,
 // bf16) a launch moves 4 * B*T*C*2 bytes and does 4*B*H*T^2*D FLOPs, about
-// 96 FLOP per byte: below the bf16 tensor-core ridge, so the bound is bytes.
-// The design keeps everything but q/k/v and the output on chip: a block
-// stages its query tile in shared memory, streams keys and then values
-// through one shared 64-row tile, and keeps the (tile x T) fp32 logits in
-// shared memory for the softmax. The bf16 kernel computes both products on
-// the tensor cores with WMMA 16x16x16 fragments; the fp32 kernel uses
-// CUDA-core FMAs, since fp32 inputs have no tensor-core path of the same
-// precision. The query tile is 64 rows when shared memory allows, else 32
-// or 16.
+// 96 FLOP per byte: below the bf16 tensor-core ridge (about 295), so the
+// bound is bytes, and the time goes to latency unless loads overlap work.
+//
+// The bf16 design for Hopper (hopper.cuh has the primitives): one warpgroup
+// (128 threads) per (64-query tile, head, image), three blocks an SM.
+//   - Loads are asynchronous: one thread issues TMA boxes (64 tokens of one
+//     head, swizzled) for the query tile and the head's keys on one
+//     mbarrier and for its values on a second, so Q K^T starts while V is
+//     still in flight. Tokens past T arrive as zeros. The three tensor maps
+//     are encoded on the host at each launch.
+//   - S = Q K^T runs on wgmma (m64n64k16, both operands K-major in shared
+//     memory); for T <= kRegKeys (192) the whole (64 x T) fp32 row block
+//     stays in registers (96 a thread at T = 192).
+//   - The softmax reduces each row's max and sum across the four threads of
+//     a quad with shuffles, normalises, and rounds P to bf16 in registers.
+//     Each quotient is the IEEE one, formed from the row's reciprocal with an
+//     FMA correction (div_by). Between two chip_smoke.py runs whose
+//     attention differed in that alone, K2 at B = 32 went from 0.0399 to
+//     0.0320 ms (NVIDIA H100 80GB HBM3, 700.00 W).
+//   - O = P V runs on wgmma with A from registers (the accumulator layout is
+//     the A-fragment layout) and V MN-major in shared memory: neither the
+//     logits nor P touch shared memory.
+//   - The fp32 accumulator is rounded once; quads exchange values so each
+//     thread stores 16-byte vectors (no staging pass through shared memory).
+// Longer sequences (T > 192, up to the wrappers' MAX_T) take a streaming
+// kernel of the same pieces over double-buffered 64-key tiles in two passes:
+// the row max and sum, then each logits tile again, normalised, rounded and
+// multiplied by its value tile. Both keep the normalise-then-round order.
+//
+// The fp32 kernel uses CUDA-core FMAs (fp32 inputs have no tensor-core path
+// of the same precision) and stages its logits in shared memory; it is not
+// on the bf16 main path.
 //
 // Each .cu file that includes this header is built into its own library,
 // so the anonymous namespace gives every definition internal linkage there.
@@ -31,12 +59,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
+
+#include "hopper.cuh"
 
 namespace {
-
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
 
 struct HeadStrides {
   long long image, head, token;
@@ -47,10 +73,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKeyTile = 64;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// ------------------------------------------------------------------ shared
+// --------------------------------------------------- fp32: CUDA-core FMAs
 
 // One warp per row: s[c] * scale for c < seq -> fp32 softmax; ``put(c, p)``
-// receives each probability (rounded by the caller to the input dtype).
+// receives each probability.
 template <typename Put>
 __device__ __forceinline__ void softmax_row(float* row, int seq, float scale, int lane, Put put) {
   float mx = -CUDART_INF_F;
@@ -65,8 +91,6 @@ __device__ __forceinline__ void softmax_row(float* row, int seq, float scale, in
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   for (int c = lane; c < seq; c += 32) put(c, row[c] / sum);
 }
-
-// --------------------------------------------------- fp32: CUDA-core FMAs
 
 constexpr int kMaxRows = 16;  // logits per thread per key tile: QT * 64 / 256
 constexpr int kMaxOut = 32;   // outputs per thread: QT * D / 256
@@ -163,128 +187,353 @@ size_t f32_smem(int qt, int seq, int dim) {
   return sizeof(float) * ((size_t)qt * dim + (size_t)kKeyTile * (dim + 1) + (size_t)qt * seq);
 }
 
-// --------------------------------------------------- bf16: tensor cores
+// ------------------------------------------------ bf16: wgmma, Hopper only
 
-constexpr int kMaxAccFrags = 4;  // P V fragments per warp: (64/16) * (128/16) / 8
+constexpr int kWg = 128;      // threads: one warpgroup
+constexpr int kQTile = 64;    // query rows per block: one wgmma M
+constexpr int kRegTiles = 3;  // 64-key logits tiles held in registers
+constexpr int kRegKeys = kRegTiles * kKeyTile;
 
-__host__ __device__ constexpr size_t round128(size_t n) { return (n + 127) / 128 * 128; }
-
-struct Bf16Layout {
-  int tpad, ldq, lds, ldp, ldo;
-  size_t off_kv, off_s, off_p, total;
-  __host__ __device__ Bf16Layout(int qt, int seq, int dim) {
-    tpad = (seq + kKeyTile - 1) / kKeyTile * kKeyTile;
-    ldq = dim + 8;   // bf16 rows of q and of the key/value tile
-    lds = tpad + 4;  // fp32 logits
-    ldp = tpad + 8;  // bf16 probabilities
-    ldo = dim + 4;   // fp32 output staging, aliased on the logits
-    off_kv = round128((size_t)qt * ldq * sizeof(bf16));
-    off_s = off_kv + round128((size_t)kKeyTile * ldq * sizeof(bf16));
-    const size_t s_bytes = (size_t)qt * (lds > ldo ? lds : ldo) * sizeof(float);
-    off_p = off_s + round128(s_bytes);
-    total = off_p + round128((size_t)qt * ldp * sizeof(bf16));
-  }
+// Shared-memory geometry of a head dimension D: TMA boxes of 64 rows, each
+// row ``span`` bytes (at most 64 values); D = 128 takes two column blocks.
+template <int D>
+struct Tiles {
+  static constexpr int SPAN = D >= 64 ? 128 : 2 * D;
+  static constexpr int NB = D > 64 ? 2 : 1;
+  static constexpr int BOX = kKeyTile * SPAN;  // bytes of one box (== kQTile rows)
+  static constexpr int STEPS = SPAN / 32;      // k16 steps of Q K^T in one column block
 };
 
-// rows [row0, row0 + n) of one head into shared rows of stride ld, zero
-// past seq; 16-byte vectors (the wrappers check the alignment)
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, size_t base,
-                                          long long ts, int row0, int n, int seq, int dim,
-                                          int tid) {
-  const int vecs = dim / 8;
-  for (int idx = tid; idx < n * vecs; idx += kThreads) {
-    const int r = idx / vecs, c = idx - r * vecs;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq) val = *reinterpret_cast<const uint4*>(src + base + (row0 + r) * ts + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = val;
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Rows [t0, t0 + 64) of head h, image b from a head map into ``dst`` (column
+// block cb at dst + cb * cb_bytes), completing on bar. The map's dimensions
+// are (D, H, T, B) when heads are inner to tokens (packed), else (D, T, H, B).
+template <int D>
+__device__ __forceinline__ void load_head_rows(unsigned char* dst, int cb_bytes,
+                                               const CUtensorMap* map, bool heads_inner, int t0,
+                                               int h, int b, uint64_t* bar) {
+#pragma unroll
+  for (int cb = 0; cb < Tiles<D>::NB; ++cb)
+    tma_load(dst + cb * cb_bytes, map, cb * 64, heads_inner ? h : t0, heads_inner ? t0 : h, b,
+             bar);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// s = Q K^T for one 64-key tile: qs and ks hold NB column blocks, BOX apart
+template <int D>
+__device__ __forceinline__ void qk_tile(float (&s)[32], const unsigned char* qs,
+                                        const unsigned char* ks) {
+  using T = Tiles<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int cb = kk / T::STEPS, j = kk % T::STEPS;
+    wgmma_ss<64>(s, desc_k(qs + cb * T::BOX, T::SPAN, 0, j),
+                 desc_k(ks + cb * T::BOX, T::SPAN, 0, j));
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-mhsa_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 HeadStrides str, int seq, int dim, int qt, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Bf16Layout L(qt, seq, dim);
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* kv = reinterpret_cast<bf16*>(smem_raw + L.off_kv);
-  float* s = reinterpret_cast<float*>(smem_raw + L.off_s);
-  bf16* p = reinterpret_cast<bf16*>(smem_raw + L.off_p);
+// Logits of the 64-key tile at key k0: scaled, -inf past seq. Element v of
+// the accumulator is key k0 + 8 (v / 4) + 2 quad + v % 2 of row half (v / 2) % 2.
+__device__ __forceinline__ void scale_mask(float (&s)[32], int k0, int seq, float scale, int quad) {
+#pragma unroll
+  for (int v = 0; v < 32; ++v) {
+    const int key = k0 + (v >> 2) * 8 + 2 * quad + (v & 1);
+    s[v] = key < seq ? s[v] * scale : -CUDART_INF_F;
+  }
+}
 
-  const int t0 = blockIdx.x * qt;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long ts = str.token;
-  const size_t base = (size_t)blockIdx.z * str.image + (size_t)blockIdx.y * str.head;
-  const int qf = qt / 16, df = dim / 16;
+__device__ __forceinline__ void tile_max(const float (&s)[32], float (&mx)[2]) {
+#pragma unroll
+  for (int v = 0; v < 32; ++v) mx[(v >> 1) & 1] = fmaxf(mx[(v >> 1) & 1], s[v]);
+}
 
-  load_rows(qs, L.ldq, q, base, ts, t0, qt, seq, dim, tid);
+// exp(s - max) in place; adds each row half's terms to sum
+__device__ __forceinline__ void tile_exp(float (&s)[32], const float (&mx)[2], float (&sum)[2]) {
+#pragma unroll
+  for (int v = 0; v < 32; ++v) {
+    s[v] = expf(s[v] - mx[(v >> 1) & 1]);
+    sum[(v >> 1) & 1] += s[v];
+  }
+}
 
-  // S = Q K^T, one 64-key tile at a time
-  for (int kt = 0; kt < L.tpad; kt += kKeyTile) {
-    __syncthreads();
-    load_rows(kv, L.ldq, k, base, ts, kt, kKeyTile, seq, dim, tid);
-    __syncthreads();
-    for (int f = warp; f < qf * (kKeyTile / 16); f += kWarps) {
-      const int fr = f / (kKeyTile / 16), fc = f % (kKeyTile / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-      for (int kk = 0; kk < df; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, qs + fr * 16 * L.ldq + kk * 16, L.ldq);
-        wmma::load_matrix_sync(b, kv + fc * 16 * L.ldq + kk * 16, L.ldq);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(s + fr * 16 * L.lds + kt + fc * 16, acc, L.lds, wmma::mem_row_major);
+// a / b for 0 <= a <= b, b >= 1, given r = 1.0f / b: q = a * r with one FMA
+// correction. With r the correctly rounded reciprocal, this is the correctly
+// rounded quotient that IEEE division gives (Markstein), at three
+// instructions for each of a row's many quotients.
+__device__ __forceinline__ float div_by(float a, float b, float r) {
+  const float q = a * r;
+  return fmaf(fmaf(-q, b, a), r, q);
+}
+
+// e / sum rounded to bf16, as the A operands of the tile's four k16 steps
+__device__ __forceinline__ void tile_p(const float (&e)[32], const float (&sum)[2],
+                                       uint32_t (&p)[4][4]) {
+  const float r[2] = {1.0f / sum[0], 1.0f / sum[1]};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float b = sum[i & 1], ri = r[i & 1];
+      p[kk][i] = pack_bf16(div_by(e[8 * kk + 2 * i], b, ri), div_by(e[8 * kk + 2 * i + 1], b, ri));
     }
-  }
-  __syncthreads();
+}
 
-  // fp32 softmax of the scaled logits; P rounded to bf16, zero past seq
-  for (int r = warp; r < qt; r += kWarps) {
-    bf16* prow = p + (size_t)r * L.ldp;
-    softmax_row(s + (size_t)r * L.lds, seq, scale, lane,
-                [&](int c, float val) { prow[c] = __float2bfloat16_rn(val); });
-    for (int c = seq + lane; c < L.tpad; c += 32) prow[c] = __float2bfloat16_rn(0.0f);
-  }
+// o += P V for one 64-key tile: vs is its first row in an MN-major tile
+// whose column blocks are cb_bytes apart
+template <int D>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 2], const uint32_t (&p)[4][4],
+                                        const unsigned char* vs, int cb_bytes) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_mn<D>(o, p[kk], desc_mn(vs, Tiles<D>::SPAN, cb_bytes, kk));
+}
 
-  // O = P V, accumulated over the value tiles in fragments held per warp
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> out[kMaxAccFrags];
+// The warpgroup's 64 x D accumulator, rounded once, to rows [t0, t0 + 64)
+// (those < seq) of the head at o; 16-byte stores where D allows.
+template <int D>
+__device__ __forceinline__ void store_tile(bf16* o, long long ts, int t0, int seq,
+                                           const float (&acc)[D / 2], int tid) {
+  const int lane = tid & 31, quad = lane & 3;
+  const int r = t0 + (tid >> 5) * 16 + (lane >> 2);
 #pragma unroll
-  for (int m = 0; m < kMaxAccFrags; ++m) wmma::fill_fragment(out[m], 0.0f);
-  for (int kt = 0; kt < L.tpad; kt += kKeyTile) {
-    __syncthreads();
-    load_rows(kv, L.ldq, v, base, ts, kt, kKeyTile, seq, dim, tid);
-    __syncthreads();
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if constexpr (D % 32 == 0) {
 #pragma unroll
-    for (int m = 0; m < kMaxAccFrags; ++m) {
-      const int f = warp + m * kWarps;
-      if (f < qf * df) {
-        const int fr = f / df, fc = f % df;
-        for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a, p + fr * 16 * L.ldp + kt + kk * 16, L.ldp);
-          wmma::load_matrix_sync(b, kv + kk * 16 * L.ldq + fc * 16, L.ldq);
-          wmma::mma_sync(out[m], a, b, out[m]);
+      for (int g = 0; g < D / 32; ++g) {
+        const int a = 16 * g + 2 * h;  // blocks 4g .. 4g + 3 of row half h
+        const uint4 w = quad_gather(pack_bf16(acc[a], acc[a + 1]), pack_bf16(acc[a + 4], acc[a + 5]),
+                                    pack_bf16(acc[a + 8], acc[a + 9]),
+                                    pack_bf16(acc[a + 12], acc[a + 13]), quad);
+        if (row < seq) *reinterpret_cast<uint4*>(o + row * ts + 32 * g + 8 * quad) = w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        if (row < seq) {
+          *reinterpret_cast<uint32_t*>(o + row * ts + 8 * j + 2 * quad) =
+              pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         }
       }
     }
   }
-  __syncthreads();  // the logits are dead: stage the output over them
+}
+
+// T <= kRegKeys: the head's keys and values resident, logits in registers.
+// Shared memory: the query tile, three 64-row key tiles (K-major), then the
+// 192 value rows of each column block (MN-major). Keys past seq arrive as
+// zeros and are masked; every block runs all three key tiles, so no wgmma
+// sits on a divergent path (short sequences, off the ViT-B path, pay for
+// the padding).
+template <int D>
+__global__ void __launch_bounds__(kWg, 3)
+mhsa_bf16_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o, HeadStrides str,
+                 int heads_inner, int seq, float scale) {
+  using T = Tiles<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar[2];  // Q and K; V
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* ks = qs + T::NB * T::BOX;
+  unsigned char* vs = ks + kRegTiles * T::NB * T::BOX;
+  const int tid = threadIdx.x, quad = tid & 3;
+  const int t0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
+
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+  }
+  mbar_init_visible();
+  if (tid == 0) {
+    mbar_expect(&bar[0], (1 + kRegTiles) * T::NB * T::BOX);
+    load_head_rows<D>(qs, T::BOX, &mq, heads_inner, t0, h, b, &bar[0]);
 #pragma unroll
-  for (int m = 0; m < kMaxAccFrags; ++m) {
-    const int f = warp + m * kWarps;
-    if (f < qf * df) {
-      const int fr = f / df, fc = f % df;
-      wmma::store_matrix_sync(s + fr * 16 * L.ldo + fc * 16, out[m], L.ldo, wmma::mem_row_major);
+    for (int t = 0; t < kRegTiles; ++t)
+      load_head_rows<D>(ks + t * T::NB * T::BOX, T::BOX, &mk, heads_inner, t * kKeyTile, h, b,
+                        &bar[0]);
+    mbar_expect(&bar[1], kRegTiles * T::NB * T::BOX);
+#pragma unroll
+    for (int t = 0; t < kRegTiles; ++t)
+      load_head_rows<D>(vs + t * T::BOX, kRegTiles * T::BOX, &mv, heads_inner, t * kKeyTile, h,
+                        b, &bar[1]);
+  }
+
+  float s[kRegTiles][32];
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[t][i] = 0.0f;
+  mbar_wait(&bar[0], 0);
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) fence_regs(s[t]);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) qk_tile<D>(s[t], qs, ks + t * T::NB * T::BOX);
+  wgmma_commit();
+  wgmma_wait<0>();
+
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) {
+    fence_regs(s[t]);
+    scale_mask(s[t], t * kKeyTile, seq, scale, quad);
+    tile_max(s[t], mx);
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) tile_exp(s[t], mx, sum);
+  sum[0] = quad_sum(sum[0]);
+  sum[1] = quad_sum(sum[1]);
+  uint32_t p[kRegTiles][4][4];
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) tile_p(s[t], sum, p[t]);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  mbar_wait(&bar[1], 0);
+  fence_regs(acc);
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) fence_regs(p[t]);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < kRegTiles; ++t) pv_tile<D>(acc, p[t], vs + t * T::BOX, kRegTiles * T::BOX);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const size_t base = (size_t)b * str.image + (size_t)h * str.head;
+  store_tile<D>(o + base, str.token, t0, seq, acc, tid);
+}
+
+// T > kRegKeys: 64-key tiles stream through two buffers, in two passes (row
+// max and sum over the key tiles; then each logits tile again, normalised,
+// times its value tile). Buffer i holds a key tile and a value tile; its
+// barrier completes once per fill, so each thread tracks one phase bit per
+// buffer.
+template <int D>
+__global__ void __launch_bounds__(kWg, 3)
+mhsa_bf16_stream_kernel(const __grid_constant__ CUtensorMap mq,
+                        const __grid_constant__ CUtensorMap mk,
+                        const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                        HeadStrides str, int heads_inner, int seq, float scale) {
+  using T = Tiles<D>;
+  constexpr int TILE = T::NB * T::BOX;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bar[3];  // Q; buffers 0 and 1
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* ks = qs + TILE;      // two key tiles
+  unsigned char* vs = ks + 2 * TILE;  // two value tiles
+  const int nt = (seq + kKeyTile - 1) / kKeyTile;
+  const int tid = threadIdx.x, quad = tid & 3;
+  const int t0 = blockIdx.x * kQTile, h = blockIdx.y, b = blockIdx.z;
+  uint32_t phase = 0;
+  auto wait_buf = [&](int i) {
+    mbar_wait(&bar[1 + i], (phase >> i) & 1);
+    phase ^= 1u << i;
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i]);
+  }
+  mbar_init_visible();
+  if (tid == 0) {
+    mbar_expect(&bar[0], TILE);
+    load_head_rows<D>(qs, T::BOX, &mq, heads_inner, t0, h, b, &bar[0]);
+    mbar_expect(&bar[1], TILE);
+    load_head_rows<D>(ks, T::BOX, &mk, heads_inner, 0, h, b, &bar[1]);
+  }
+  mbar_wait(&bar[0], 0);
+
+  // pass 1: running row max m and sum l of exp(s - m)
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
+  for (int t = 0; t < nt; ++t) {
+    const int i = t & 1;
+    wait_buf(i);
+    __syncthreads();  // every thread is done with tile t - 1's buffer
+    if (tid == 0 && t + 1 < nt) {
+      mbar_expect(&bar[2 - i], TILE);
+      load_head_rows<D>(ks + (1 - i) * TILE, T::BOX, &mk, heads_inner, (t + 1) * kKeyTile, h, b,
+                        &bar[2 - i]);
     }
+    float s[32];
+#pragma unroll
+    for (int v = 0; v < 32; ++v) s[v] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+    qk_tile<D>(s, qs, ks + i * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    scale_mask(s, t * kKeyTile, seq, scale, quad);
+    float mn[2] = {m[0], m[1]};
+    tile_max(s, mn);
+    mn[0] = quad_max(mn[0]);
+    mn[1] = quad_max(mn[1]);
+    l[0] *= expf(m[0] - mn[0]);
+    l[1] *= expf(m[1] - mn[1]);
+    tile_exp(s, mn, l);
+    m[0] = mn[0];
+    m[1] = mn[1];
   }
-  __syncthreads();
-  for (int idx = tid; idx < qt * dim; idx += kThreads) {
-    const int r = idx / dim, d = idx - r * dim;
-    if (t0 + r < seq) o[base + (t0 + r) * ts + d] = __float2bfloat16_rn(s[r * L.ldo + d]);
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+
+  // pass 2: each logits tile again, normalised and rounded, times its values
+  __syncthreads();  // every thread is done with pass 1's key buffers
+  if (tid == 0) {
+    mbar_expect(&bar[1], 2 * TILE);
+    load_head_rows<D>(ks, T::BOX, &mk, heads_inner, 0, h, b, &bar[1]);
+    load_head_rows<D>(vs, T::BOX, &mv, heads_inner, 0, h, b, &bar[1]);
   }
+  float acc[D / 2];
+#pragma unroll
+  for (int v = 0; v < D / 2; ++v) acc[v] = 0.0f;
+  for (int t = 0; t < nt; ++t) {
+    const int i = t & 1;
+    wait_buf(i);
+    __syncthreads();
+    if (tid == 0 && t + 1 < nt) {
+      const int k0 = (t + 1) * kKeyTile;
+      mbar_expect(&bar[2 - i], 2 * TILE);
+      load_head_rows<D>(ks + (1 - i) * TILE, T::BOX, &mk, heads_inner, k0, h, b, &bar[2 - i]);
+      load_head_rows<D>(vs + (1 - i) * TILE, T::BOX, &mv, heads_inner, k0, h, b, &bar[2 - i]);
+    }
+    float s[32];
+#pragma unroll
+    for (int v = 0; v < 32; ++v) s[v] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+    qk_tile<D>(s, qs, ks + i * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    scale_mask(s, t * kKeyTile, seq, scale, quad);
+    float unused[2] = {0.0f, 0.0f};
+    tile_exp(s, m, unused);
+    uint32_t p[4][4];
+    tile_p(s, l, p);
+    fence_regs(p);
+    wgmma_fence();
+    pv_tile<D>(acc, p, vs + i * TILE, T::BOX);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  fence_regs(acc);
+  const size_t base = (size_t)b * str.image + (size_t)h * str.head;
+  store_tile<D>(o + base, str.token, t0, seq, acc, tid);
 }
 
 // ------------------------------------------------------------------ launch
@@ -317,18 +566,75 @@ int launch_mhsa(const float* q, const float* k, const float* v, float* o, HeadSt
   return (int)cudaGetLastError();
 }
 
+// shared memory of a bf16 kernel holding ``boxes`` 64-row tiles of every
+// column block, with room to align it to 1024 bytes
+template <int D>
+constexpr size_t bf16_smem(int boxes) {
+  return (size_t)boxes * Tiles<D>::NB * Tiles<D>::BOX + 1024;
+}
+
+// A 4-D TMA map of one of q/k/v: (D, H, T, B) when heads are inner to tokens
+// (the packed layout), else (D, T, H, B), so that strides increase; boxes
+// of 64 tokens of one head, at most 64 values wide.
+int head_map(CUtensorMap* map, const bf16* x, HeadStrides str, int batch, int seq, int heads,
+             int dim) {
+  const bool inner = str.head < str.token;
+  const cuuint64_t dims[4] = {(cuuint64_t)dim, (cuuint64_t)(inner ? heads : seq),
+                              (cuuint64_t)(inner ? seq : heads), (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)(inner ? str.head : str.token) * 2,
+                           (cuuint64_t)(inner ? str.token : str.head) * 2,
+                           (cuuint64_t)str.image * 2};
+  // a dimension of size 1 is never stepped: give it the stride of a dense
+  // tensor, so the strides stay nondecreasing
+  if (dims[1] == 1) strides[0] = (cuuint64_t)dim * 2;
+  if (dims[2] == 1) strides[1] = strides[0] * dims[1];
+  if (dims[3] == 1) strides[2] = strides[1] * dims[2];
+  const cuuint32_t box[4] = {(cuuint32_t)(dim < 64 ? dim : 64), inner ? 1u : (cuuint32_t)kKeyTile,
+                             inner ? (cuuint32_t)kKeyTile : 1u, 1};
+  return make_map(map, x, 4, dims, strides, box);
+}
+
+template <int D>
+int launch_mhsa_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, HeadStrides str,
+                     int batch, int seq, int heads, float scale, cudaStream_t stream) {
+  // the opt-in to more than 48 KB of shared memory, once per kernel
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(mhsa_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bf16_smem<D>(1 + 2 * kRegTiles));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mhsa_bf16_stream_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bf16_smem<D>(5));
+    return e;
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap mq, mk, mv;
+  int err;
+  if ((err = head_map(&mq, q, str, batch, seq, heads, D)) ||
+      (err = head_map(&mk, k, str, batch, seq, heads, D)) ||
+      (err = head_map(&mv, v, str, batch, seq, heads, D)))
+    return err;
+  const int inner = str.head < str.token;
+  const dim3 grid((seq + kQTile - 1) / kQTile, heads, batch);
+  if (seq <= kRegKeys) {
+    mhsa_bf16_kernel<D><<<grid, kWg, bf16_smem<D>(1 + 2 * kRegTiles), stream>>>(
+        mq, mk, mv, o, str, inner, seq, scale);
+  } else {
+    mhsa_bf16_stream_kernel<D><<<grid, kWg, bf16_smem<D>(5), stream>>>(mq, mk, mv, o, str, inner,
+                                                                       seq, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 int launch_mhsa(const bf16* q, const bf16* k, const bf16* v, bf16* o, HeadStrides str,
                 int batch, int seq, int heads, int dim, float scale, cudaStream_t stream) {
   if (bad_shape(batch, seq, heads, dim)) return (int)cudaErrorInvalidValue;
-  const int qt = pick_tile([&](int t) { return Bf16Layout(t, seq, dim).total; });
-  if (qt == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = Bf16Layout(qt, seq, dim).total;
-  cudaError_t err = cudaFuncSetAttribute(mhsa_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((seq + qt - 1) / qt, heads, batch);
-  mhsa_bf16_kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, str, seq, dim, qt, scale);
-  return (int)cudaGetLastError();
+  switch (dim) {
+    case 16: return launch_mhsa_bf16<16>(q, k, v, o, str, batch, seq, heads, scale, stream);
+    case 32: return launch_mhsa_bf16<32>(q, k, v, o, str, batch, seq, heads, scale, stream);
+    case 64: return launch_mhsa_bf16<64>(q, k, v, o, str, batch, seq, heads, scale, stream);
+    default: return launch_mhsa_bf16<128>(q, k, v, o, str, batch, seq, heads, scale, stream);
+  }
 }
 
 HeadStrides packed_strides(int seq, int heads, int dim) {

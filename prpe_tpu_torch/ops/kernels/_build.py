@@ -44,11 +44,15 @@ SIGNATURES = {
     "ln_mhsa": {
         "prpe_ln_mhsa_f32": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
         "prpe_ln_mhsa_bf16": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
+        "prpe_layernorm_bf16": [_P] * 4 + [_I, _I, _F, _P],
+        "prpe_linear_bf16": [_P] * 5 + [_I] * 3 + [_P],
     },
 }
 
-# one counter per kernel route; ``mhsa`` and ``mhsa_bhtd`` share a library
-launches: Dict[str, int] = {name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa")}
+# one counter per kernel route; ``mhsa`` and ``mhsa_bhtd`` share a library,
+# and so do ``ln_mhsa`` and its stages alone (``layernorm``, ``linear``)
+launches: Dict[str, int] = {
+    name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa", "layernorm", "linear")}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

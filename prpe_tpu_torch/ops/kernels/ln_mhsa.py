@@ -1,15 +1,21 @@
 """Fused pre-LN attention half-block: the CUDA kernel ``csrc/ln_mhsa.cu`` and
-its plain version.
+its plain version, and two of its stages alone.
 
 Counterpart of ``prpe_tpu/ops/pallas/attention_kernel.py::fused_ln_mhsa``
 (``_ln_mhsa_kernel``): ``x + proj(MHSA(qkv(LN(x))))`` for x of shape
 (B, T, C). The weights are the port's ``Linear`` weights, (out, in); as in
 the JAX package they are cast to ``x.dtype`` here, outside the kernel, while
-the LayerNorm parameters and the biases stay fp32. CPU tensors take
-:func:`ln_mhsa_plain`; CUDA tensors launch the kernel or raise.
+the LayerNorm parameters and the biases stay fp32. CPU tensors take the
+plain versions; CUDA tensors launch the kernel or raise.
+
+:func:`layernorm` and :func:`linear` run the half-block's LayerNorm and its
+GEMM (bias, optional residual) as launches of their own, so that each stage
+can be timed; :func:`fused_ln_mhsa` does not call them.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -19,27 +25,111 @@ from prpe_tpu_torch.ops.kernels.attention import MAX_T, mhsa_packed_plain
 _SYMBOL = {torch.float32: "prpe_ln_mhsa_f32", torch.bfloat16: "prpe_ln_mhsa_bf16"}
 
 
-def ln_mhsa_plain(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
-                  eps: float = 1e-12) -> torch.Tensor:
-    """Plain PyTorch half-block with the numerics of the Pallas body (not of
-    its XLA oracle, which rounds the logits and each product before the
-    bias): two-pass fp32 LayerNorm statistics, fp32 scale and shift, rounded
-    to the input dtype; each projection accumulates in fp32 over operands in
-    the input dtype, adds its fp32 bias in fp32 and rounds once; the
-    attention of :func:`mhsa_packed_plain`; ``x + round(y)`` in the input
-    dtype."""
-    dt = x.dtype
+def layernorm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    eps: float = 1e-12) -> torch.Tensor:
+    """LayerNorm over the last axis with the Pallas body's numerics:
+    two-pass fp32 statistics (mean, then the mean of squared deviations), eps
+    inside the square root, fp32 scale and shift, rounded to x's dtype."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     xc = xf - mu
     var = (xc * xc).mean(-1, keepdim=True)
-    xn = (xc * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()).to(dt)
+    return (xc * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
 
-    def dense(inp, w, b):
-        return (inp.float() @ w.to(dt).float().T + b.float()).to(dt)
 
-    o = mhsa_packed_plain(dense(xn, wq, bq), dense(xn, wk, bk), dense(xn, wv, bv), heads)
-    return x + dense(o, wo, bo)
+def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``round(x @ w^T + b)`` with the Pallas body's ``dense`` numerics:
+    operands in x's dtype (w, an (out, in) weight, cast to it), fp32
+    accumulation, the fp32 bias added in fp32, one rounding; then
+    ``residual + y`` in x's dtype when a residual is given."""
+    dt = x.dtype
+    y = (x.float() @ w.to(dt).float().T + b.float()).to(dt)
+    return y if residual is None else residual + y
+
+
+def ln_mhsa_plain(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                  eps: float = 1e-12) -> torch.Tensor:
+    """Plain PyTorch half-block with the numerics of the Pallas body (not of
+    its XLA oracle, which rounds the logits and each product before the
+    bias): :func:`layernorm_plain`, three :func:`linear_plain` projections,
+    :func:`mhsa_packed_plain`, and the output projection with ``x`` as its
+    residual."""
+    xn = layernorm_plain(x, ln_w, ln_b, eps)
+    o = mhsa_packed_plain(linear_plain(xn, wq, bq), linear_plain(xn, wk, bk),
+                          linear_plain(xn, wv, bv), heads)
+    return linear_plain(o, wo, bo, residual=x)
+
+
+def _call(x: torch.Tensor, fn, *args) -> int:
+    """A C entry point on x's device, with its current stream as the last
+    argument; returns the CUDA error code."""
+    with torch.cuda.device(x.device):
+        return fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _check_cuda(name: str, x: torch.Tensor, others, dtypes) -> None:
+    if x.device.type != "cuda" or any(a.device != x.device for a in others):
+        raise ValueError(f"{name}: x on {x.device}, other operands on "
+                         f"{sorted({str(a.device) for a in others})}")
+    if x.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {x.dtype} not in {sorted(map(str, dtypes))}")
+
+
+def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              eps: float = 1e-12) -> torch.Tensor:
+    """The half-block's LayerNorm stage over the last axis: the CUDA kernel
+    (bf16) for CUDA tensors, :func:`layernorm_plain` for CPU tensors."""
+    if x.device.type == "cpu":
+        return layernorm_plain(x, w, b, eps)
+    _check_cuda("layernorm", x, (w, b), (torch.bfloat16,))
+    cols = x.shape[-1]
+    if not x.is_contiguous() or tuple(w.shape) != (cols,) or tuple(b.shape) != (cols,):
+        raise ValueError(f"layernorm: x {tuple(x.shape)} must be contiguous, w and b ({cols},)")
+    w, b = w.float().contiguous(), b.float().contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    err = _call(x, _build.load("ln_mhsa").prpe_layernorm_bf16, x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), y.data_ptr(), x.numel() // cols, cols, float(eps))
+    _build.check(err, "layernorm launch")
+    _build.launches["layernorm"] += 1
+    return y
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The half-block's GEMM stage, ``round(x @ w^T + b)`` (``+ residual``
+    after the rounding): the CUDA kernel (bf16) for CUDA tensors,
+    :func:`linear_plain` for CPU tensors."""
+    if x.device.type == "cpu":
+        return linear_plain(x, w, b, residual)
+    others = (w, b) if residual is None else (w, b, residual)
+    _check_cuda("linear", x, others, (torch.bfloat16,))
+    k = x.shape[-1]
+    n = w.shape[0]
+    if not x.is_contiguous() or w.dim() != 2 or w.shape[1] != k or tuple(b.shape) != (n,):
+        raise ValueError(f"linear: x {tuple(x.shape)} contiguous, w (n, {k}) and b (n,) expected, "
+                         f"got w {tuple(w.shape)}, b {tuple(b.shape)}")
+    if n % 8 or k % 8 or k == 0:
+        raise ValueError(f"linear: in = {k} and out = {n} must be positive multiples of 8")
+    out_shape = (*x.shape[:-1], n)
+    if residual is not None and (tuple(residual.shape) != out_shape
+                                 or residual.dtype != x.dtype or not residual.is_contiguous()):
+        raise ValueError(f"linear: residual must be a contiguous {out_shape} {x.dtype} tensor")
+    w, b = w.to(x.dtype).contiguous(), b.float().contiguous()
+    ptrs = (x, w, b) if residual is None else (x, w, b, residual)
+    if any(p.data_ptr() % 16 for p in ptrs):
+        raise ValueError("linear: every operand must start on a 16-byte boundary")
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    err = _call(x, _build.load("ln_mhsa").prpe_linear_bf16, x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), None if residual is None else residual.data_ptr(), out.data_ptr(),
+                x.numel() // k, n, k)
+    _build.check(err, "linear launch")
+    _build.launches["linear"] += 1
+    return out
 
 
 def fused_ln_mhsa(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
@@ -49,11 +139,7 @@ def fused_ln_mhsa(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
     args = (ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)
     if x.device.type == "cpu":
         return ln_mhsa_plain(x, *args, heads=heads, eps=eps)
-    if x.device.type != "cuda" or any(a.device != x.device for a in args):
-        raise ValueError(f"fused_ln_mhsa: x on {x.device}, parameters on "
-                         f"{sorted({str(a.device) for a in args})}")
-    if x.dtype not in _SYMBOL:
-        raise ValueError(f"fused_ln_mhsa: dtype {x.dtype}")
+    _check_cuda("fused_ln_mhsa", x, args, tuple(_SYMBOL))
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"fused_ln_mhsa: x must be a contiguous (B, T, C) tensor, got {x.shape}")
     b, t, c = x.shape
@@ -77,11 +163,9 @@ def fused_ln_mhsa(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
     if x.numel() == 0:
         return out
     ws = torch.empty(4 * b * t * c, dtype=x.dtype, device=x.device)
-    fn = getattr(_build.load("ln_mhsa"), _SYMBOL[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(p.data_ptr() for p in ptrs), out.data_ptr(), ws.data_ptr(),
-                 b, t, c, heads, float(eps), float(d ** -0.5), stream)
+    err = _call(x, getattr(_build.load("ln_mhsa"), _SYMBOL[x.dtype]),
+                *(p.data_ptr() for p in ptrs), out.data_ptr(), ws.data_ptr(),
+                b, t, c, heads, float(eps), float(d ** -0.5))
     _build.check(err, "fused_ln_mhsa launch")
     _build.launches["ln_mhsa"] += 1
     return out

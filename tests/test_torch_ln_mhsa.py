@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from prpe_tpu.ops.pallas.attention_kernel import fused_ln_mhsa as jfused_ln_mhsa
-from prpe_tpu_torch.ops.kernels.ln_mhsa import fused_ln_mhsa, ln_mhsa_plain
+from prpe_tpu_torch.ops.kernels.attention import mhsa_packed_plain
+from prpe_tpu_torch.ops.kernels.ln_mhsa import (
+    fused_ln_mhsa, layernorm, layernorm_plain, linear, linear_plain, ln_mhsa_plain,
+)
 
 
 def half_block_inputs(b, t, c, seed):
@@ -57,3 +60,91 @@ def test_wrapper_refuses_other_devices():
     meta = [torch.empty(p.shape, device="meta") for p in port_params(params)]
     with pytest.raises(ValueError, match="meta"):
         fused_ln_mhsa(torch.empty(x.shape, device="meta"), *meta, heads=2)
+
+
+def _old_ln_mhsa_plain(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads, eps=1e-12):
+    """The plain half-block as one function, before its stages were split
+    out: the composition must keep every rounding of it."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    xn = (xc * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()).to(dt)
+
+    def dense(inp, w, b):
+        return (inp.float() @ w.to(dt).float().T + b.float()).to(dt)
+
+    o = mhsa_packed_plain(dense(xn, wq, bq), dense(xn, wk, bk), dense(xn, wv, bv), heads)
+    return x + dense(o, wo, bo)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_stages_compose_to_ln_mhsa_plain(dtype):
+    """layernorm_plain -> three linear_plain -> mhsa_packed_plain ->
+    linear_plain with the residual is ln_mhsa_plain, bit for bit, and equal
+    to the one-function version it replaced."""
+    x, params = half_block_inputs(2, 24, 64, seed=11)
+    td = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(td)
+    lw, lb, wq, bq, wk, bk, wv, bv, wo, bo = port_params(params)
+    xn = layernorm_plain(xt, lw, lb)
+    o = mhsa_packed_plain(linear_plain(xn, wq, bq), linear_plain(xn, wk, bk),
+                          linear_plain(xn, wv, bv), 4)
+    staged = linear_plain(o, wo, bo, residual=xt)
+    want = ln_mhsa_plain(xt, *port_params(params), heads=4)
+    assert staged.dtype == td
+    assert torch.equal(staged, want)
+    assert torch.equal(want, _old_ln_mhsa_plain(xt, *port_params(params), heads=4))
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_linear_plain_matches_pallas_dense(with_residual):
+    """linear_plain against the Pallas body's ``dense`` (``dot_general`` with
+    ``preferred_element_type=float32``, plus the fp32 bias, rounded once),
+    then ``x + y`` as the body adds its residual, in bf16 through jax.numpy.
+    The two fp32 sums run in different orders, so a result may sit one bf16
+    step (2**-8 relative) away."""
+    import jax
+
+    rng = np.random.default_rng(12)
+    m, k, n = 40, 64, 96
+    a = rng.normal(0, 1, (m, k)).astype(np.float32)
+    w = rng.normal(0, k ** -0.5, (k, n)).astype(np.float32)  # JAX (in, out)
+    b = rng.normal(0, 0.02, (n,)).astype(np.float32)
+    res = rng.normal(0, 1, (m, n)).astype(np.float32)
+    ja = jnp.asarray(a, jnp.bfloat16)
+    y = jax.lax.dot_general(ja, jnp.asarray(w, jnp.bfloat16), (((1,), (0,)), ((), ())),
+                            preferred_element_type=jnp.float32)
+    want = (y + jnp.asarray(b)).astype(jnp.bfloat16)
+    if with_residual:
+        want = jnp.asarray(res, jnp.bfloat16) + want
+    got = linear_plain(torch.from_numpy(a).bfloat16(), torch.from_numpy(w.T.copy()),
+                       torch.from_numpy(b),
+                       torch.from_numpy(res).bfloat16() if with_residual else None)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    want = np.asarray(want, np.float32)
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7)
+    assert np.mean(got == want) > 0.95
+
+
+def test_stage_wrappers_cpu_path_is_plain():
+    x, params = half_block_inputs(2, 12, 32, seed=13)
+    xt = torch.from_numpy(x).bfloat16()
+    lw, lb, wq, bq = port_params(params)[:4]
+    assert torch.equal(layernorm(xt, lw, lb), layernorm_plain(xt, lw, lb))
+    assert torch.equal(linear(xt, wq, bq), linear_plain(xt, wq, bq))
+    assert torch.equal(linear(xt, wq, bq, residual=xt), linear_plain(xt, wq, bq, residual=xt))
+
+
+@pytest.mark.parametrize("stage", ["layernorm", "linear"])
+def test_stage_wrappers_refuse_other_devices(stage):
+    """A tensor that is not on the CPU never takes a plain version."""
+    x = torch.empty(1, 4, 32, device="meta")
+    w, b = torch.empty(32, 32, device="meta"), torch.empty(32, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        if stage == "layernorm":
+            layernorm(x, b, b)
+        else:
+            linear(x, w, b)
