@@ -7,16 +7,19 @@ Builds the CUDA kernels from ``prpe_tpu_torch/csrc/`` (into
 exit on the first fault:
 
 1. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (NMS keep masks equal; packed and (B, H, T, D)
-   MHSA within 2e-2 in bf16 and 1e-4 in fp32 on unit-scale outputs, bf16 at
-   B = 32 and 128; the fused LN -> MHSA half-block within 5e-2 in bf16 and
-   2e-4 in fp32), with its time, the plain version's time, the library
-   call's time where there is one, the least time the card could take for
-   the same work, and the host time of one wrapper call; then the
-   half-block's stages alone (LayerNorm, one projection, the attention, the
-   output projection with the residual) each beside its library call; then
-   every kernel at odd shapes, the attention at T = 1, 192 (the longest
-   sequence whose logits stay in registers) and 193 for every head dim;
+   the serving path's shapes (NMS keep masks equal at K = 256 and 1024;
+   packed and (B, H, T, D) MHSA within 2e-2 in bf16 and 1e-4 in fp32 on
+   unit-scale outputs, both dtypes at B = 32 and 128; the fused LN -> MHSA
+   half-block within 5e-2 in bf16 and 2e-4 in fp32), with its time, the
+   plain version's time, the library call's time where there is one, the
+   least time the card could take for the same work, and the host time of
+   one wrapper call; then the half-block's stages alone (LayerNorm, one
+   projection, the attention, the output projection with the residual) each
+   beside its library call; then every kernel at odd shapes: NMS at K = 31,
+   32, 33, 64 and 1024 with every candidate valid, with none valid and with
+   one image of none, at thresholds 0.0 and 0.65; the attention at T = 1,
+   192 (the longest sequence whose logits stay in registers) and 193 for
+   every head dim;
 2. reference: a tiny fp32 cascade on the card against the same cascade on
    the CPU (where the kernels' plain versions run);
 3. attn_modes: for each ``PRPE_ATTN_MODE`` of ``tools/bench_attention.py``,
@@ -28,7 +31,11 @@ exit on the first fault:
    and under ``pallas_lnfused``: each once with every launch counter at zero
    to show the path went through its kernels, then images/s at batch 32
    and 128; the default mode also profiles the kernels that take the card's
-   time.
+   time;
+5. cascade in fp32: the same cascade with ``dtype=torch.float32`` in the
+   default mode (the dtype the JAX package's CLI and ``bench.py`` serve in
+   off the TPU): launches checked, images/s at batch 32, and a profile of
+   one call with the attention kernels' device ms.
 
 Every phase prints one JSON line with the card's name and power limit. The
 last two lines are the ``kernels`` summary and ``{"ok": true, ...}``. The
@@ -38,7 +45,7 @@ build fails the run if ``ptxas`` reports a spill in any kernel.
 
 runs the serving-shape kernel rows only, importing ``prpe_tpu_torch`` from
 the checkout at DIR (default: this one), so that two trees can be timed in
-one call on one card.
+one call on one card; ``--compare`` runs those rows and phase 5.
 """
 
 from __future__ import annotations
@@ -145,16 +152,17 @@ def expected_launches(mode: str, layers: int, nms: int = 0):
 
 # ---------------------------------------------------------------- kernels ---
 
-def nms_inputs(b: int, k: int, gen: torch.Generator, device):
+def nms_inputs(b: int, k: int, gen: torch.Generator, device, valid_share: float = 0.7):
     """Boxes clustered around a few centres per image (real overlaps) and a
-    validity mask that is not a prefix."""
+    validity mask: ``valid_share`` of the candidates valid, not a prefix (every
+    candidate valid at 1.0, none at 0.0)."""
     u = lambda *s: torch.rand(*s, generator=gen, device=device)  # noqa: E731
     centres = 50 + 500 * u(b, max(8, k // 32), 2)
     pick = (u(b, k) * centres.shape[1]).long()
     cxy = torch.gather(centres, 1, pick[..., None].expand(b, k, 2)) + 16 * (u(b, k, 2) - 0.5)
     wh = 20 + 60 * u(b, k, 2)
     boxes = torch.cat([cxy - wh / 2, cxy + wh / 2], -1).contiguous()
-    valid = u(b, k) < 0.7
+    valid = u(b, k) < valid_share
     return boxes, valid
 
 
@@ -183,7 +191,7 @@ def phase_nms(gen, device, b: int, k: int, thr: float = 0.65):
     bnd, by = bound_ms(b * k * (16 + 1 + 1), ops, PEAK_FLOPS[torch.float32])
     row = dict(name="nms_keep", B=b, K=k, max_abs_err=err, kept=int(keep.sum()),
                valid=int(valid.sum()), ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-               library_ms=None)
+               library_ms=None, host_us=host_us(lambda: nms_keep(boxes, valid, thr)))
     emit("kernel", **row)
     return row
 
@@ -347,11 +355,14 @@ def phase_ln_stages(gen, device, b: int, t: int = 192, c: int = 768, h: int = 12
 
 def phase_odd_shapes(gen, device) -> None:
     """Kernels against their plain versions away from the serving shapes:
-    K not a multiple of 32, T not a multiple of the 64-key tile, every head
-    dim, the longest sequence, and T = 1, 192 and 193 (the bf16 kernel holds
-    the logits of up to 192 keys in registers and streams longer rows) for
-    every head dim; for the half-block and its stages alone, B*T rows and C
-    columns that are not multiples of the GEMM tiles. Correctness only."""
+    NMS at K not a multiple of 32 and at the word edges K = 31, 32, 33, 64
+    and the largest K = 1024 with every candidate valid, with none valid and
+    with one image of a batch none valid, at thresholds 0.0 and 0.65; T not
+    a multiple of the 64-key tile, every head dim, the longest sequence, and
+    T = 1, 192 and 193 (both attention kernels hold the logits of up to 192
+    keys in registers and take longer rows in more passes) for every head
+    dim; for the half-block and its stages alone, B*T rows and C columns
+    that are not multiples of the GEMM tiles. Correctness only."""
     from prpe_tpu_torch.ops.kernels.attention import (
         mhsa_bhtd, mhsa_bhtd_plain, mhsa_packed, mhsa_packed_plain,
     )
@@ -361,11 +372,25 @@ def phase_odd_shapes(gen, device) -> None:
     from prpe_tpu_torch.ops.kernels.nms import nms_keep, nms_keep_plain
 
     checked = []
-    for b, k in ((3, 1), (5, 300), (2, 777)):
-        boxes, valid = nms_inputs(b, k, gen, device)
-        if not torch.equal(nms_keep(boxes, valid, 0.5), nms_keep_plain(boxes, valid, 0.5)):
-            fail(f"nms_keep differs from its plain version at B={b}, K={k}")
-        checked.append(f"nms B={b} K={k}")
+    # K at the 32-candidate word edges and the largest K, every candidate
+    # valid; no candidate valid; one image of a batch with none valid
+    nms_cases = [(3, 1, 0.7, 0.5), (5, 300, 0.7, 0.5), (2, 777, 0.7, 0.5)]
+    nms_cases += [(b, k, share, thr) for b, k, share in (
+        (3, 31, 1.0), (3, 32, 1.0), (3, 33, 1.0), (2, 64, 1.0), (2, 1024, 1.0), (3, 256, 0.0))
+        for thr in (0.0, 0.65)]
+    for b, k, share, thr in nms_cases:
+        boxes, valid = nms_inputs(b, k, gen, device, share)
+        if not torch.equal(nms_keep(boxes, valid, thr), nms_keep_plain(boxes, valid, thr)):
+            fail(f"nms_keep differs from its plain version at B={b}, K={k}, "
+                 f"valid share {share}, threshold {thr}")
+        checked.append(f"nms B={b} K={k} valid={share} thr={thr}")
+    boxes, valid = nms_inputs(4, 256, gen, device)
+    valid[2] = False
+    for thr in (0.0, 0.65):
+        if not torch.equal(nms_keep(boxes, valid, thr), nms_keep_plain(boxes, valid, thr)):
+            fail(f"nms_keep differs from its plain version with one image of none valid, "
+                 f"threshold {thr}")
+        checked.append(f"nms B=4 K=256 image 2 none valid thr={thr}")
     straddle = [(2, t, 2, d) for d in (16, 32, 64, 128) for t in (1, 192, 193)]
     for b, t, h, d in ((2, 24, 2, 16), (3, 200, 4, 32), (2, 65, 3, 64), (1, 1024, 2, 128),
                        *straddle):
@@ -515,10 +540,11 @@ def phase_attn_modes(device, batch: int = 128):
 
 
 def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
-                  irnet_layers: int = 50, size: int = 640, batches=((32, 20), (128, 8))):
-    """The full-width cascade unless a smaller ``pose`` / ``size`` is given,
-    once per attention mode; the first mode is also profiled. Returns the
-    launches of one call per mode."""
+                  irnet_layers: int = 50, size: int = 640, batches=((32, 20), (128, 8)),
+                  dtype=torch.bfloat16):
+    """The full-width cascade in ``dtype`` unless a smaller ``pose`` / ``size``
+    is given, once per attention mode; the first mode is also profiled.
+    Returns the launches of one call per mode."""
     from prpe_tpu_torch.core.config import CascadeConfig, DetectionConfig, PoseConfig
     from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
     from prpe_tpu_torch.ops.kernels import launches, reset_launches
@@ -526,14 +552,15 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
     pose = pose or PoseConfig()
     t0 = time.perf_counter()
     model = CascadeModel(DetectionConfig(), pose, irnet_layers=irnet_layers,
-                         dtype=torch.bfloat16, device=device, seed=0)
+                         dtype=dtype, device=device, seed=0)
     cfg = CascadeConfig(max_persons=8, max_faces=8, match_threshold=0.3, conf_threshold=0.0)
     gen = torch.Generator(device=device).manual_seed(1)
     gallery = torch.nn.functional.normalize(
         torch.randn(32, 512, generator=gen, device=device), dim=-1)
-    images = {b: torch.rand(b, size, size, 3, generator=gen, device=device).to(torch.bfloat16)
+    images = {b: torch.rand(b, size, size, 3, generator=gen, device=device).to(dtype)
               for b, _ in batches}
     init_s = time.perf_counter() - t0
+    dt = str(dtype).replace("torch.", "")
 
     counts = {}
     for mode in modes:
@@ -549,7 +576,8 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
                     counts[mode] = dict(launches)
                     want = expected_launches(mode, pose.vit_layers, nms=2)
                     if counts[mode] != want:
-                        fail(f"main path under {mode} launched {counts[mode]}, expected {want}")
+                        fail(f"main path under {mode} ({dt}) launched {counts[mode]}, "
+                             f"expected {want}")
                     check_result(res, batch, cfg.max_persons, cfg.max_faces, batch,
                                  pose.num_keypoints)
                     if mode == modes[0]:
@@ -561,19 +589,21 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
                 for _ in range(iters):
                     out = run(images[batch], gallery)
                 torch.cuda.synchronize()
-                dt = time.perf_counter() - t
+                wall = time.perf_counter() - t
                 check_result(out, batch, cfg.max_persons, cfg.max_faces, batch, pose.num_keypoints)
-                rates[batch] = batch * iters / dt
+                rates[batch] = batch * iters / wall
         emit("cascade", metric=f"face_gated_pose_cascade_{size}_throughput", unit="images/sec",
-             attn_mode=mode, images_per_s={f"b{b}": r for b, r in rates.items()},
+             dtype=dt, attn_mode=mode, images_per_s={f"b{b}": r for b, r in rates.items()},
              launches_per_call=counts[mode], init_s=init_s,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         if mode == modes[0]:
             # busy share: kernel time of one profiled call over one timed call's wall time
             b0 = batches[0][0]
             wall_ms = 1e3 * b0 / rates[b0]
-            emit(f"profile_b{b0}", attn_mode=mode, wall_ms_per_call=wall_ms,
-                 device_busy_share=profile.get("kernel_ms", 0.0) / wall_ms, top_device_ms=profile)
+            emit(f"profile_b{b0}" + ("" if dtype == torch.bfloat16 else f"_{dt}"),
+                 attn_mode=mode, wall_ms_per_call=wall_ms,
+                 device_busy_share=profile.get("kernel_ms", 0.0) / wall_ms,
+                 attention_kernel_ms=profile["attention_ms"], top_device_ms=profile)
     return counts
 
 
@@ -591,7 +621,11 @@ def profile_top(fn, top: int = 12):
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             rows.append((e.self_device_time_total / 1e3, e.count, e.key[:80]))
     rows.sort(reverse=True)
+    # the attention kernels of the port (K2 and K3 in either dtype, K4's stage)
+    attention = [r for r in rows if "mhsa_" in r[2] and "_kernel" in r[2]]
     return {"kernel_ms": sum(r[0] for r in rows), "launches": sum(r[1] for r in rows),
+            "attention_ms": sum(r[0] for r in attention),
+            "attention_launches": sum(r[1] for r in attention),
             "top": [list(r) for r in rows[:top]]}
 
 
@@ -608,8 +642,25 @@ def report_build(logs) -> None:
                 fail(f"ptxas reports a spill in csrc/{name}.cu: {line.strip()}")
 
 
-def b128_keys(row) -> dict:
-    return {f"{k}_b128": row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us")}
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
+
+
+def suffixed(row, suffix: str) -> dict:
+    """A row's measured keys under ``<key><suffix>``, for the kernels line."""
+    return {f"{k}{suffix}": row[k] for k in ROW_KEYS}
+
+
+def kernel_rows(gen, device):
+    """The serving-shape kernel rows: K1 at K = 256 and 1024; K2 and K3 in
+    bf16 and fp32 at B = 32 and 128; K4 in both dtypes at B = 32 and 128."""
+    bf, f32 = torch.bfloat16, torch.float32
+    nms_rows = [phase_nms(gen, device, 32, k) for k in (256, 1024)]
+    # the pose stage runs at pose_capacity = batch
+    shapes = [(bf, 32), (f32, 32), (bf, 128), (f32, 128)]
+    mhsa_rows = [phase_mhsa(gen, device, dt, "packed", b) for dt, b in shapes]
+    bhtd_rows = [phase_mhsa(gen, device, dt, "bhtd", b) for dt, b in shapes]
+    ln_rows = [phase_ln_mhsa(gen, device, dt, b) for dt in (bf, f32) for b in (32, 128)]
+    return nms_rows, mhsa_rows, bhtd_rows, ln_rows
 
 
 def main() -> int:
@@ -617,6 +668,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
                         help="run the serving-shape kernel rows only")
+    parser.add_argument("--compare", action="store_true",
+                        help="run the serving-shape kernel rows and the fp32 cascade only")
     parser.add_argument("--root", help="import prpe_tpu_torch from the checkout at ROOT")
     args = parser.parse_args()
     if args.root:
@@ -642,15 +695,13 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, root=os.path.abspath(args.root or "."))
 
     gen = torch.Generator(device=device).manual_seed(0)
-    nms_rows = [phase_nms(gen, device, 32, k) for k in (256, 1024)]
-    bf, f32 = torch.bfloat16, torch.float32
-    # bf16 at B = 32 and 128 (the pose stage runs at pose_capacity = batch), fp32 at 32
-    mhsa_rows = [phase_mhsa(gen, device, dt, "packed", b) for dt, b in ((bf, 32), (f32, 32),
-                                                                        (bf, 128))]
-    bhtd_rows = [phase_mhsa(gen, device, dt, "bhtd", b) for dt, b in ((bf, 32), (f32, 32),
-                                                                      (bf, 128))]
-    ln_rows = [phase_ln_mhsa(gen, device, dt, b) for dt in (bf, f32) for b in (32, 128)]
+    nms_rows, mhsa_rows, bhtd_rows, ln_rows = kernel_rows(gen, device)
+    fp32_cascade = lambda: phase_cascade(  # noqa: E731
+        device, modes=("pallas_packed",), batches=((32, 10),), dtype=torch.float32)
     if args.kernels_only:
+        return 0
+    if args.compare:
+        fp32_cascade()
         return 0
     for b in (32, 128):
         phase_ln_stages(gen, device, b)
@@ -658,17 +709,23 @@ def main() -> int:
     phase_reference(device)
     mode_counts = phase_attn_modes(device)
     counts = phase_cascade(device)
+    counts_f32 = fp32_cascade()
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_us")
     src, pallas = "prpe_tpu_torch/csrc/", "prpe_tpu/ops/pallas/"
-    nms = {k: nms_rows[0][k] for k in keys if k != "host_us"}
+    row = lambda r: {k: r[k] for k in ROW_KEYS}  # noqa: E731
+    # rows at B = 32 in bf16 (the default cascade's dtype), then the same
+    # kernel at B = 128 and in fp32 under suffixed keys
+    attn_keys = lambda rows: {**row(rows[0]), **suffixed(rows[2], "_b128"),  # noqa: E731
+                              **suffixed(rows[1], "_f32"), **suffixed(rows[3], "_b128_f32")}
     kernels = [
         dict(name="nms_keep", route="cuda", source=src + "nms.cu",
-             replaces=pallas + "nms_kernel.py:42", launches=counts["pallas_packed"]["nms"], **nms),
+             replaces=pallas + "nms_kernel.py:42", launches=counts["pallas_packed"]["nms"],
+             launches_f32=counts_f32["pallas_packed"]["nms"], **row(nms_rows[0]),
+             **suffixed(nms_rows[1], "_k1024")),
         dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
              replaces=pallas + "attention_kernel.py:92",
-             launches=counts["pallas_packed"]["mhsa"], **{k: mhsa_rows[0][k] for k in keys},
-             **b128_keys(mhsa_rows[2])),
+             launches=counts["pallas_packed"]["mhsa"],
+             launches_f32=counts_f32["pallas_packed"]["mhsa"], **attn_keys(mhsa_rows)),
     ]
     # one kernel serves the three (B, H, T, D) Pallas kernels; launches per
     # ViTPose-B forward under the mode that selects each
@@ -676,14 +733,16 @@ def main() -> int:
                                 ("bh", "pallas_bh", 76)):
         kernels.append(dict(name=f"mhsa_bhtd[{variant}]", route="cuda", source=src + "mhsa.cu",
                             replaces=f"{pallas}attention_kernel.py:{line}", attn_mode=mode,
-                            launches=mode_counts[mode]["mhsa_bhtd"],
-                            **{k: bhtd_rows[0][k] for k in keys}, **b128_keys(bhtd_rows[2])))
+                            launches=mode_counts[mode]["mhsa_bhtd"], **attn_keys(bhtd_rows)))
     kernels.append(dict(name="ln_mhsa", route="cuda", source=src + "ln_mhsa.cu",
                         replaces=pallas + "attention_kernel.py:115", attn_mode="pallas_lnfused",
                         launches=counts["pallas_lnfused"]["ln_mhsa"],
                         composed_library_ms=ln_rows[0]["composed_library_ms"],
                         composed_library_ms_b128=ln_rows[1]["composed_library_ms"],
-                        **{k: ln_rows[0][k] for k in keys}, **b128_keys(ln_rows[1])))
+                        composed_library_ms_f32=ln_rows[2]["composed_library_ms"],
+                        composed_library_ms_b128_f32=ln_rows[3]["composed_library_ms"],
+                        **row(ln_rows[0]), **suffixed(ln_rows[1], "_b128"),
+                        **suffixed(ln_rows[2], "_f32"), **suffixed(ln_rows[3], "_b128_f32")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

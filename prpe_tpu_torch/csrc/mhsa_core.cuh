@@ -47,9 +47,44 @@
 // the row max and sum, then each logits tile again, normalised, rounded and
 // multiplied by its value tile. Both keep the normalise-then-round order.
 //
-// The fp32 kernel uses CUDA-core FMAs (fp32 inputs have no tensor-core path
-// of the same precision) and stages its logits in shared memory; it is not
-// on the bf16 main path.
+// The fp32 kernel (K2/K3 in fp32 and K4's fp32 attention stage) stays in
+// fp32 on CUDA-core FMAs: fp32 has no tensor-core path of the same
+// precision (TF32 keeps 10 mantissa bits), expf is the accurate one and each
+// quotient the IEEE one (div_by). At the ViT-B shape a launch does 4*B*H*T^2*D
+// FLOPs against 4 * B*T*C*4 bytes, about 48 FLOP per byte: far above the
+// fp32 ridge (67 TFLOP/s over 3.35 TB/s, 20 FLOP per byte), so the bound is
+// the FMA rate. What holds it back is the shared-memory pipe: a 16-byte
+// shared load takes four cycles of it whatever it broadcasts, so a thread
+// tile of a x b outputs runs at the FMA rate only if ab / (a + b) >= 4. The
+// design for Hopper:
+//   - 256 threads per (64-query tile, head, image) as a 16 x 16 grid; a
+//     thread owns query rows ty + 16 i (i < 4) and, in Q K^T, the keys
+//     tx + 16 j (j < 12) of a 192-key chunk: 48 logits in registers
+//     (4 x 12: ab / (a + b) = 3). Q and K sit row-major in shared memory,
+//     16-byte chunks swizzled by row, so one float4 load of a key row feeds
+//     16 FMAs and one of a query row 48; the 16 threads of a row are half a
+//     warp, so the row max and sum are four shuffles each. (An 8 x 6 tile,
+//     one warp a row, spilled and ran slower.)
+//   - P, normalised in registers, is written once into the key buffer
+//     (the keys are dead by then), rows kPStride floats apart. P V splits
+//     the chunk's keys among G groups of threads (4 at D = 64), so that a
+//     thread owns 8 rows x 8 head-dim columns (ab / (a + b) = 4): per four
+//     keys, eight float4 loads of P and eight of V feed 256 FMAs, each load
+//     one wavefront at an immediate offset from one pointer (V is not
+//     swizzled: the chunks a warp reads are neighbours in one row). The
+//     groups' partial tiles are then summed through shared memory, in group
+//     order, by threads that store neighbouring chunks of a row.
+//   - Q with the keys, then the values, are copied with cp.async in two
+//     groups, so Q K^T starts while V is still in flight; 113 KB of shared
+//     memory at D = 64 lets two blocks share an SM, one loading while the
+//     other computes.
+//   - T > 192 (up to the wrappers' MAX_T) runs two passes over the chunks:
+//     the row max and sum of exp (rescaled as the max grows), then each
+//     chunk's logits again, normalised, times its values.
+//   Measured at B = 32 (tools/variants.py, NVIDIA H100 80GB HBM3 at
+//   700 W): removing P V takes the kernel from 0.1152 to 0.0766 ms; at the
+//   FMA rate each product would take 0.027 ms.
+// The shared-memory limit and carve-out are set once per head dim.
 //
 // Each .cu file that includes this header is built into its own library,
 // so the anonymous namespace gives every definition internal linkage there.
@@ -68,123 +103,287 @@ struct HeadStrides {
   long long image, head, token;
 };
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;  // fp32 attention, and ln_mhsa.cu's LayerNorm and fp32 GEMM
 constexpr int kKeyTile = 64;
-constexpr size_t kMaxSmem = 227 * 1024;
+
+// a / b for 0 <= a <= b, b >= 1, given r = 1.0f / b: q = a * r with one FMA
+// correction. With r the correctly rounded reciprocal, this is the correctly
+// rounded quotient that IEEE division gives (Markstein), at three
+// instructions for each of a row's many quotients.
+__device__ __forceinline__ float div_by(float a, float b, float r) {
+  const float q = a * r;
+  return fmaf(fmaf(-q, b, a), r, q);
+}
 
 // --------------------------------------------------- fp32: CUDA-core FMAs
 
-// One warp per row: s[c] * scale for c < seq -> fp32 softmax; ``put(c, p)``
-// receives each probability.
-template <typename Put>
-__device__ __forceinline__ void softmax_row(float* row, int seq, float scale, int lane, Put put) {
-  float mx = -CUDART_INF_F;
-  for (int c = lane; c < seq; c += 32) mx = fmaxf(mx, row[c] * scale);
-  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  float sum = 0.0f;
-  for (int c = lane; c < seq; c += 32) {
-    const float e = expf(row[c] * scale - mx);
-    row[c] = e;
-    sum += e;
-  }
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  for (int c = lane; c < seq; c += 32) put(c, row[c] / sum);
+constexpr int kFRows = 64;   // query rows of a block
+constexpr int kFKeys = 192;  // keys of a chunk: 12 a thread, 16 threads a row
+
+// 16 bytes from global to shared memory, asynchronously; zeros unless ``full``
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-constexpr int kMaxRows = 16;  // logits per thread per key tile: QT * 64 / 256
-constexpr int kMaxOut = 32;   // outputs per thread: QT * D / 256
+constexpr int kPStride = kFKeys + 4;  // floats per row of P: 4 rows in 4 bank groups
 
-__global__ void __launch_bounds__(kThreads)
+// Shared-memory geometry of the fp32 kernel for head dim D, in floats: the
+// query tile and the key chunk, row-major with 16-byte chunk c of row r at
+// c ^ (r & SWZ); the chunk's probabilities in the keys' place, rows
+// kPStride apart; the value chunk row-major (P V reads eight neighbouring
+// chunks of one row: one wavefront without a swizzle).
+template <int D>
+struct F32Tile {
+  static constexpr int CH = D / 4;
+  static constexpr int SWZ = (CH < 8 ? CH : 8) - 1;
+  static constexpr int Q = kFRows * D;
+  static constexpr int KP = kFKeys * D > kFRows * kPStride ? kFKeys * D : kFRows * kPStride;
+  static constexpr int V = kFKeys * D;
+  static constexpr size_t SMEM = sizeof(float) * (Q + KP + V);
+  // P V: a thread owns 8 rows x 2 head-dim chunks; a group of 8 x PC
+  // threads covers the 64 x D tile over its G-th of the chunk's keys
+  static constexpr int PC = CH / 2;
+  static constexpr int G = kThreads / (8 * PC);
+  static constexpr int KG = kFKeys / G;
+  // the groups' partial tiles, rows RS floats apart, over the whole buffer
+  static constexpr int RS = D >= 32 ? D + 4 : D;
+  static_assert(G * kFRows * RS <= Q + KP + V, "partial tiles fit in shared memory");
+  // two blocks an SM where two fit in its 228 KB (1 KB reserved per block)
+  static constexpr int BLOCKS = 2 * (SMEM + 1024) <= 228 * 1024 ? 2 : 1;
+};
+
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & F32Tile<D>::SWZ)) << 2);
+}
+
+// rows [t0, t0 + rows) of one head into a tile, swizzled or plain; rows
+// past seq as zeros
+template <int D, bool kSwizzle = true>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long ts, int t0,
+                                          int rows, int seq) {
+  constexpr int CH = D / 4;
+  for (int idx = threadIdx.x; idx < rows * CH; idx += kThreads) {
+    const int r = idx / CH, c = idx - r * CH;
+    const bool in = t0 + r < seq;
+    cp_async16(dst + (kSwizzle ? swz<D>(r, c) : r * D + 4 * c),
+               src + (in ? (t0 + r) * ts + 4 * c : 0), in);
+  }
+}
+
+// s[i][j] = q(row ty + 16 i) . k(key tx + 16 j of the chunk), summed over d in order
+template <int D>
+__device__ __forceinline__ void chunk_logits(float (&s)[4][12], const float* qs, const float* ks,
+                                             int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 12; ++j) s[i][j] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) {
+    float4 qv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qs + swz<D>(ty + 16 * i, c));
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {
+      const float4 kv = *reinterpret_cast<const float4*>(ks + swz<D>(tx + 16 * j, c));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = fmaf(qv[i].x, kv.x, s[i][j]);
+        a = fmaf(qv[i].y, kv.y, a);
+        a = fmaf(qv[i].z, kv.z, a);
+        s[i][j] = fmaf(qv[i].w, kv.w, a);
+      }
+    }
+  }
+}
+
+// scaled logits; keys k0 + tx + 16 j past seq at -inf
+__device__ __forceinline__ void chunk_scale(float (&s)[4][12], int k0, int seq, float scale,
+                                            int tx) {
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    const bool in = k0 + tx + 16 * j < seq;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[i][j] = in ? s[i][j] * scale : -CUDART_INF_F;
+  }
+}
+
+// over the 16 lanes of a row (one half warp)
+__device__ __forceinline__ float row_max(const float (&x)[12]) {
+  float m = x[0];
+#pragma unroll
+  for (int j = 1; j < 12; ++j) m = fmaxf(m, x[j]);
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+  return m;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// kStream: T > kFKeys, in two passes over the key chunks, one block an SM
+// (the row statistics and the output stay in registers across chunks);
+// else one chunk, two blocks an SM where shared memory allows.
+template <int D, bool kStream>
+__global__ void __launch_bounds__(kThreads, kStream ? 1 : F32Tile<D>::BLOCKS)
 mhsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o,
-                HeadStrides str, int seq, int dim, int qt, float scale) {
-  extern __shared__ float smem[];
-  const int kv_stride = dim + 1;  // padded rows: conflict-free column reads
-  float* qs = smem;                        // qt x dim
-  float* tile = qs + qt * dim;             // kKeyTile x (dim + 1), keys then values
-  float* s = tile + kKeyTile * kv_stride;  // qt x seq logits, then probabilities
-
-  const int t0 = blockIdx.x * qt;
-  const int tid = threadIdx.x;
-  const long long ts = str.token;
+                const float* __restrict__ v, float* __restrict__ o, HeadStrides str, int seq,
+                float scale) {
+  using T = F32Tile<D>;
+  extern __shared__ float4 smem_f32[];
+  float* qs = reinterpret_cast<float*>(smem_f32);
+  float* ks = qs + T::Q;  // a chunk's keys, then its probabilities
+  float* vs = ks + T::KP;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // in P V, thread (g, pr, pc) owns rows pr + 8 i (i < 8) and head-dim
+  // chunks pc and pc + PC over keys [g KG, g KG + KG) of each chunk
+  const int pc = tid % T::PC, pr = (tid / T::PC) & 7, g = tid / (8 * T::PC);
+  const int t0 = blockIdx.x * kFRows;
   const size_t base = (size_t)blockIdx.z * str.image + (size_t)blockIdx.y * str.head;
+  const long long ts = str.token;
+  const int nch = kStream ? (seq + kFKeys - 1) / kFKeys : 1;
+  float s[4][12], m[4], l[4];
 
-  for (int idx = tid; idx < qt * dim; idx += kThreads) {
-    const int r = idx / dim, d = idx - r * dim;
-    qs[idx] = t0 + r < seq ? q[base + (t0 + r) * ts + d] : 0.0f;
-  }
-
-  // logits: thread owns key column kc of the tile and rows r0 + 4m
-  const int kc = tid % kKeyTile;
-  const int r0 = tid / kKeyTile;
-  const int n_rows = qt / (kThreads / kKeyTile);
-  for (int kt = 0; kt < seq; kt += kKeyTile) {
-    __syncthreads();
-    for (int idx = tid; idx < kKeyTile * dim; idx += kThreads) {
-      const int c = idx / dim, d = idx - c * dim;
-      tile[c * kv_stride + d] = kt + c < seq ? k[base + (kt + c) * ts + d] : 0.0f;
+  load_rows<D>(qs, q + base, ts, t0, kFRows, seq);  // completes with the first key chunk
+  if constexpr (kStream) {
+    // pass 1: each row's max m and sum l of exp(s - m), rescaled as m grows
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -CUDART_INF_F;
+      l[i] = 0.0f;
     }
-    __syncthreads();
-    float acc[kMaxRows];
+    for (int ch = 0; ch < nch; ++ch) {
+      if (ch) __syncthreads();  // every thread is done with the last chunk's keys
+      load_rows<D>(ks, k + base, ts, ch * kFKeys, kFKeys, seq);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      chunk_logits<D>(s, qs, ks, tx, ty);
+      chunk_scale(s, ch * kFKeys, seq, scale, tx);
 #pragma unroll
-    for (int m = 0; m < kMaxRows; ++m) acc[m] = 0.0f;
-    for (int d = 0; d < dim; ++d) {
-      const float kv = tile[kc * kv_stride + d];
+      for (int i = 0; i < 4; ++i) {
+        const float mn = fmaxf(m[i], row_max(s[i]));
+        float e = 0.0f;
 #pragma unroll
-      for (int m = 0; m < kMaxRows; ++m) {
-        if (m < n_rows) acc[m] += qs[(r0 + 4 * m) * dim + d] * kv;
+        for (int j = 0; j < 12; ++j) e += expf(s[i][j] - mn);
+        l[i] = l[i] * expf(m[i] - mn) + row_sum(e);
+        m[i] = mn;
       }
     }
-    if (kt + kc < seq) {
+    __syncthreads();
+  }
+
+  // pass 2 (the only one without kStream): P of each chunk, then O += P V
+  float acc[8][2][4];
 #pragma unroll
-      for (int m = 0; m < kMaxRows; ++m) {
-        if (m < n_rows) s[(r0 + 4 * m) * seq + kt + kc] = acc[m];
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int k0 = ch * kFKeys;
+    if (ch) __syncthreads();  // every thread is done with the last chunk's P and V
+    load_rows<D>(ks, k + base, ts, k0, kFKeys, seq);
+    cp_async_commit();
+    load_rows<D, false>(vs, v + base, ts, k0, kFKeys, seq);
+    cp_async_commit();
+    cp_async_wait<1>();  // Q and the keys; the values may still be in flight
+    __syncthreads();
+    chunk_logits<D>(s, qs, ks, tx, ty);
+    chunk_scale(s, k0, seq, scale, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (!kStream) {
+        m[i] = row_max(s[i]);
+        float e = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 12; ++j) {
+          s[i][j] = expf(s[i][j] - m[i]);
+          e += s[i][j];
+        }
+        l[i] = row_sum(e);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 12; ++j) s[i][j] = expf(s[i][j] - m[i]);
+      }
+      const float r = 1.0f / l[i];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) s[i][j] = div_by(s[i][j], l[i], r);
+    }
+    __syncthreads();  // every thread is done with the keys: P takes their place
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 12; ++j)
+        ks[(ty + 16 * i) * kPStride + tx + 16 * j] = s[i][j];
+    cp_async_wait<0>();
+    __syncthreads();
+    // keys past seq have P = 0 and zero values, so the loop may round up to 4
+    const int c1 = min(g * T::KG + T::KG, seq - k0);
+    // one base pointer each for P and V: every load below has an immediate
+    // offset from it
+    const float* prow = ks + pr * kPStride;
+    const float* vcol = vs + 4 * pc;
+#pragma unroll 2
+    for (int c = g * T::KG; c < c1; c += 4) {
+      float4 p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        p[i] = *reinterpret_cast<const float4*>(prow + 8 * i * kPStride + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float4 vv = *reinterpret_cast<const float4*>(vcol + (c + e) * D + 4 * n * T::PC);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float pe = e == 0 ? p[i].x : e == 1 ? p[i].y : e == 2 ? p[i].z : p[i].w;
+            acc[i][n][0] = fmaf(pe, vv.x, acc[i][n][0]);
+            acc[i][n][1] = fmaf(pe, vv.y, acc[i][n][1]);
+            acc[i][n][2] = fmaf(pe, vv.z, acc[i][n][2]);
+            acc[i][n][3] = fmaf(pe, vv.w, acc[i][n][3]);
+          }
+        }
       }
     }
   }
+  // the groups' partial tiles through shared memory, summed in group order
+  __syncthreads();  // every thread is done with Q, P and V
+  float* part = qs;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      *reinterpret_cast<float4*>(part + (g * kFRows + pr + 8 * i) * T::RS + 4 * (pc + n * T::PC)) =
+          make_float4(acc[i][n][0], acc[i][n][1], acc[i][n][2], acc[i][n][3]);
   __syncthreads();
-
-  const int lane = tid & 31;
-  for (int r = tid >> 5; r < qt; r += kWarps) {
-    float* row = s + (size_t)r * seq;
-    softmax_row(row, seq, scale, lane, [&](int c, float p) { row[c] = p; });
-  }
-
-  // P V: thread owns output column od and rows orow0 + m * (256 / dim)
-  const int od = tid % dim;
-  const int orow0 = tid / dim;
-  const int row_step = kThreads / dim;
-  const int n_out = (qt * dim + kThreads - 1) / kThreads;
-  float out[kMaxOut];
+  // each pass a row of chunks per CH threads: neighbouring threads read
+  // neighbouring chunks of one row and store them coalesced
+  constexpr int kRowsPerPass = kThreads / T::CH;
+  const int c = 4 * (tid % T::CH);
 #pragma unroll
-  for (int m = 0; m < kMaxOut; ++m) out[m] = 0.0f;
-  for (int kt = 0; kt < seq; kt += kKeyTile) {
-    __syncthreads();
-    for (int idx = tid; idx < kKeyTile * dim; idx += kThreads) {
-      const int c = idx / dim, d = idx - c * dim;
-      tile[c * kv_stride + d] = kt + c < seq ? v[base + (kt + c) * ts + d] : 0.0f;
+  for (int r = tid / T::CH; r < kFRows; r += kRowsPerPass) {
+    float4 sum = *reinterpret_cast<const float4*>(part + r * T::RS + c);
+#pragma unroll
+    for (int h = 1; h < T::G; ++h) {
+      const float4 x = *reinterpret_cast<const float4*>(part + (h * kFRows + r) * T::RS + c);
+      sum = make_float4(sum.x + x.x, sum.y + x.y, sum.z + x.z, sum.w + x.w);
     }
-    __syncthreads();
-    const int nc = min(kKeyTile, seq - kt);
-    for (int c = 0; c < nc; ++c) {
-      const float vv = tile[c * kv_stride + od];
-#pragma unroll
-      for (int m = 0; m < kMaxOut; ++m) {
-        const int r = orow0 + m * row_step;
-        if (m < n_out && r < qt) out[m] += s[(size_t)r * seq + kt + c] * vv;
-      }
-    }
+    if (t0 + r < seq) *reinterpret_cast<float4*>(o + base + (t0 + r) * ts + c) = sum;
   }
-#pragma unroll
-  for (int m = 0; m < kMaxOut; ++m) {
-    const int r = orow0 + m * row_step;
-    if (m < n_out && r < qt && t0 + r < seq) o[base + (t0 + r) * ts + od] = out[m];
-  }
-}
-
-size_t f32_smem(int qt, int seq, int dim) {
-  return sizeof(float) * ((size_t)qt * dim + (size_t)kKeyTile * (dim + 1) + (size_t)qt * seq);
 }
 
 // ------------------------------------------------ bf16: wgmma, Hopper only
@@ -266,15 +465,6 @@ __device__ __forceinline__ void tile_exp(float (&s)[32], const float (&mx)[2], f
     s[v] = expf(s[v] - mx[(v >> 1) & 1]);
     sum[(v >> 1) & 1] += s[v];
   }
-}
-
-// a / b for 0 <= a <= b, b >= 1, given r = 1.0f / b: q = a * r with one FMA
-// correction. With r the correctly rounded reciprocal, this is the correctly
-// rounded quotient that IEEE division gives (Markstein), at three
-// instructions for each of a row's many quotients.
-__device__ __forceinline__ float div_by(float a, float b, float r) {
-  const float q = a * r;
-  return fmaf(fmaf(-q, b, a), r, q);
 }
 
 // e / sum rounded to bf16, as the A operands of the tile's four k16 steps
@@ -538,32 +728,51 @@ mhsa_bf16_stream_kernel(const __grid_constant__ CUtensorMap mq,
 
 // ------------------------------------------------------------------ launch
 
-template <typename Smem>
-int pick_tile(Smem smem) {
-  int qt = 64;
-  while (qt > 16 && smem(qt) > kMaxSmem) qt /= 2;
-  return smem(qt) > kMaxSmem ? 0 : qt;
-}
-
 bool bad_shape(int batch, int seq, int heads, int dim) {
   return batch <= 0 || seq <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
          (dim != 16 && dim != 32 && dim != 64 && dim != 128);
 }
 
+// the opt-in to more than 48 KB of shared memory and the largest carve-out
+template <typename Kernel>
+cudaError_t f32_attributes(Kernel kernel, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+template <int D>
+int launch_mhsa_f32(const float* q, const float* k, const float* v, float* o, HeadStrides str,
+                    int batch, int seq, int heads, float scale, cudaStream_t stream) {
+  constexpr size_t smem = F32Tile<D>::SMEM;
+  static const cudaError_t attr = [] {  // once per kernel
+    const cudaError_t e = f32_attributes(mhsa_f32_kernel<D, false>, smem);
+    return e == cudaSuccess ? f32_attributes(mhsa_f32_kernel<D, true>, smem) : e;
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((seq + kFRows - 1) / kFRows, heads, batch);
+  if (seq <= kFKeys)
+    mhsa_f32_kernel<D, false><<<grid, kThreads, smem, stream>>>(q, k, v, o, str, seq, scale);
+  else
+    mhsa_f32_kernel<D, true><<<grid, kThreads, smem, stream>>>(q, k, v, o, str, seq, scale);
+  return (int)cudaGetLastError();
+}
+
 // One attention launch over q/k/v/o laid out by ``str``, on ``stream``;
-// returns the CUDA error code (0 on success).
+// returns the CUDA error code (0 on success). q, k, v and o start on 16-byte
+// boundaries, and every token and head offset is a multiple of 4 elements.
 int launch_mhsa(const float* q, const float* k, const float* v, float* o, HeadStrides str,
                 int batch, int seq, int heads, int dim, float scale, cudaStream_t stream) {
   if (bad_shape(batch, seq, heads, dim)) return (int)cudaErrorInvalidValue;
-  const int qt = pick_tile([&](int t) { return f32_smem(t, seq, dim); });
-  if (qt == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = f32_smem(qt, seq, dim);
-  cudaError_t err = cudaFuncSetAttribute(mhsa_f32_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((seq + qt - 1) / qt, heads, batch);
-  mhsa_f32_kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, str, seq, dim, qt, scale);
-  return (int)cudaGetLastError();
+  switch (dim) {
+    case 16: return launch_mhsa_f32<16>(q, k, v, o, str, batch, seq, heads, scale, stream);
+    case 32: return launch_mhsa_f32<32>(q, k, v, o, str, batch, seq, heads, scale, stream);
+    case 64: return launch_mhsa_f32<64>(q, k, v, o, str, batch, seq, heads, scale, stream);
+    default: return launch_mhsa_f32<128>(q, k, v, o, str, batch, seq, heads, scale, stream);
+  }
 }
 
 // shared memory of a bf16 kernel holding ``boxes`` 64-row tiles of every

@@ -61,6 +61,8 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> 
     if b == 0:
         return torch.zeros(0, k, dtype=torch.bool, device=boxes.device)
     boxes = boxes.to(torch.float32).contiguous()
+    if boxes.data_ptr() % 16:  # the kernel reads each box as one 16-byte vector
+        boxes = boxes.clone()
     valid = valid.to(torch.bool).contiguous()
     keep = torch.empty(b, k, dtype=torch.bool, device=boxes.device)
     lib = _build.load("nms")

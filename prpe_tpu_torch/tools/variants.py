@@ -1,0 +1,165 @@
+"""Time variants of a kernel source on the card, in turns, in one process.
+
+    python3 -m prpe_tpu_torch.tools.variants {nms,mhsa} \\
+        [--variant NAME 'OLD=>NEW' ['OLD=>NEW' ...]] ... [--rounds 2]
+
+A variant is ``prpe_tpu_torch/csrc/`` with each ``OLD`` text replaced by
+``NEW`` in every source or header that holds it (a missing ``OLD`` is an
+error); variant ``as_is`` is the source unchanged. Every variant is built at
+once with the flags of ``_build.py`` into ``build/prpe_tpu_torch/variants/``
+and loaded with ctypes; then, round after round, each variant's entry point
+is timed (median CUDA-event time of 25 back-to-back launches behind a sleep
+kernel) and held against the plain PyTorch version:
+
+- ``nms``: ``prpe_nms_keep`` at B = 32, K = 256 and 1024 and B = 128,
+  K = 256, every candidate valid and 70 % valid, threshold 0.65 (keep masks
+  must equal ``nms_keep_plain``);
+- ``mhsa``: ``prpe_mhsa_packed_f32`` at B = 32 and 128, T = 192, H = 12,
+  D = 64 (max abs error against ``mhsa_packed_plain``).
+
+Prints one JSON line per variant and shape with the card's name and power
+limit, and the ``ptxas`` register and spill lines of each build.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+
+from prpe_tpu_torch.ops.kernels import _build
+from prpe_tpu_torch.ops.kernels.attention import mhsa_packed_plain
+from prpe_tpu_torch.ops.kernels.nms import nms_keep_plain
+from prpe_tpu_torch.tools.nms_phases import inputs as nms_inputs
+
+
+def make_variant(lib: str, name: str, edits) -> Path:
+    root = _build.BUILD_DIR / "variants" / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(_build.CSRC, root)
+    for edit in edits:
+        old, new = edit.split("=>", 1)
+        hits = 0
+        for path in [root / f"{lib}.cu", *sorted(root.glob("*.cuh"))]:
+            text = path.read_text()
+            if old in text:
+                path.write_text(text.replace(old, new))
+                hits += 1
+        if not hits:
+            raise ValueError(f"variant {name}: {old!r} is in no source of {lib}")
+    return root
+
+
+def build(lib: str, variants: dict) -> dict:
+    procs = {}
+    for name, root in variants.items():
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.EXTRA_FLAGS.get(lib, []),
+               "-o", str(root / f"lib{lib}.so"), str(root / f"{lib}.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"{name}: {line.strip()}", flush=True)
+        if proc.returncode:
+            raise RuntimeError(f"variant {name} failed to build:\n{log}")
+        dll = ctypes.CDLL(str(variants[name] / f"lib{lib}.so"))
+        for sym, argtypes in _build.SIGNATURES[lib].items():
+            fn = getattr(dll, sym)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        libs[name] = dll
+    return libs
+
+
+def event_ms(fn, runs: int = 25) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(runs + 1)]
+    torch.cuda._sleep(50_000_000)
+    events[0].record()
+    for i in range(runs):
+        fn()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(runs))
+
+
+def nms_cases(gen):
+    for b, k in ((32, 256), (32, 1024), (128, 256)):
+        for all_valid in (True, False):
+            boxes, valid = nms_inputs(b, k, all_valid, gen)
+            keep = torch.empty(b, k, dtype=torch.bool, device="cuda")
+            want = nms_keep_plain(boxes, valid, 0.65)
+
+            def call(dll, boxes=boxes, valid=valid, keep=keep, b=b, k=k):
+                return dll.prpe_nms_keep(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b,
+                                         k, 0.65, torch.cuda.current_stream().cuda_stream)
+
+            def err(keep=keep, want=want):
+                return float((keep != want).sum())
+
+            yield dict(B=b, K=k, all_valid=all_valid), call, err
+
+
+def mhsa_cases(gen):
+    t, h, d = 192, 12, 64
+    for b in (32, 128):
+        q, k, v = (torch.randn(b, t, h * d, generator=gen, device="cuda") for _ in range(3))
+        o = torch.empty_like(q)
+        want = mhsa_packed_plain(q, k, v, h)
+
+        def call(dll, q=q, k=k, v=v, o=o, b=b):
+            return dll.prpe_mhsa_packed_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                            b, t, h, d, d ** -0.5,
+                                            torch.cuda.current_stream().cuda_stream)
+
+        def err(o=o, want=want):
+            return float((o - want).abs().max())
+
+        yield dict(B=b, T=t, H=h, D=d, dtype="float32"), call, err
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("lib", choices=("nms", "mhsa"))
+    parser.add_argument("--variant", nargs="+", action="append", default=[],
+                        metavar=("NAME", "EDIT"), help="a name, then OLD=>NEW edits")
+    parser.add_argument("--rounds", type=int, default=2)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("variants: needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    specs = {"as_is": [], **{v[0]: v[1:] for v in args.variant}}
+    libs = build(args.lib, {name: make_variant(args.lib, name, edits)
+                            for name, edits in specs.items()})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = list((nms_cases if args.lib == "nms" else mhsa_cases)(gen))
+    times = {(name, i): [] for name in libs for i in range(len(cases))}
+    errs = {}
+    for _ in range(args.rounds):
+        for name, dll in libs.items():
+            for i, (_, call, err) in enumerate(cases):
+                _build.check(call(dll), f"{name} launch")
+                torch.cuda.synchronize()
+                errs[name, i] = max(errs.get((name, i), 0.0), err())
+                times[name, i].append(event_ms(lambda: call(dll)))
+    for (name, i), ms in times.items():
+        print(json.dumps({"lib": args.lib, "variant": name, **cases[i][0], "ms": ms,
+                          "err": errs[name, i], "card": card}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
