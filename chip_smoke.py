@@ -14,12 +14,13 @@ exit on the first fault:
    plain version's time, the library call's time where there is one, the
    least time the card could take for the same work, and the host time of
    one wrapper call; then the half-block's stages alone (LayerNorm, one
-   projection, the attention, the output projection with the residual) each
-   beside its library call; then every kernel at odd shapes: NMS at K = 31,
-   32, 33, 64 and 1024 with every candidate valid, with none valid and with
-   one image of none, at thresholds 0.0 and 0.65; the attention at T = 1,
-   192 (the longest sequence whose logits stay in registers) and 193 for
-   every head dim;
+   projection, the attention, the output projection with the residual) in
+   bf16 and fp32 at B = 32 and 128, each beside its library call; then every
+   kernel at odd shapes: NMS at K = 31, 32, 33, 64 and 1024 with every
+   candidate valid, with none valid and with one image of none, at
+   thresholds 0.0 and 0.65; the attention at T = 1, 192 (the longest
+   sequence whose logits stay in registers) and 193 for every head dim; the
+   half-block's stages alone in both dtypes (fp32 within 1e-4);
 2. reference: a tiny fp32 cascade on the card against the same cascade on
    the CPU (where the kernels' plain versions run);
 3. attn_modes: for each ``PRPE_ATTN_MODE`` of ``tools/bench_attention.py``,
@@ -30,12 +31,12 @@ exit on the first fault:
    ViTPose-B) with random seeded weights, in the default attention mode
    and under ``pallas_lnfused``: each once with every launch counter at zero
    to show the path went through its kernels, then images/s at batch 32
-   and 128; the default mode also profiles the kernels that take the card's
-   time;
-5. cascade in fp32: the same cascade with ``dtype=torch.float32`` in the
-   default mode (the dtype the JAX package's CLI and ``bench.py`` serve in
-   off the TPU): launches checked, images/s at batch 32, and a profile of
-   one call with the attention kernels' device ms.
+   and 128, and a profile of the kernels that take the card's time;
+5. cascade in fp32: the same cascade with ``dtype=torch.float32`` (the
+   dtype the JAX package's CLI and ``bench.py`` serve in off the TPU) in the
+   default mode and under ``pallas_lnfused``: launches checked, images/s at
+   batch 32, and a profile of one call with the device ms of the attention
+   kernels and of K4's LayerNorm, GEMM and attention stages.
 
 Every phase prints one JSON line with the card's name and power limit. The
 last two lines are the ``kernels`` summary and ``{"ok": true, ...}``. The
@@ -45,7 +46,8 @@ build fails the run if ``ptxas`` reports a spill in any kernel.
 
 runs the serving-shape kernel rows only, importing ``prpe_tpu_torch`` from
 the checkout at DIR (default: this one), so that two trees can be timed in
-one call on one card; ``--compare`` runs those rows and phase 5.
+one call on one card; ``--compare`` runs those rows and phase 5 (both
+modes), and no phase that needs the stage entry points alone.
 """
 
 from __future__ import annotations
@@ -294,20 +296,21 @@ def phase_ln_mhsa(gen, device, dtype, b: int, t: int = 192, c: int = 768, h: int
     return row
 
 
-def phase_ln_stages(gen, device, b: int, t: int = 192, c: int = 768, h: int = 12):
-    """The half-block's stages alone, bf16, each checked against its plain
-    version and timed beside one library call: the LayerNorm
+def phase_ln_stages(gen, device, dtype, b: int, t: int = 192, c: int = 768, h: int = 12):
+    """The half-block's stages alone in ``dtype``, each checked against its
+    plain version and timed beside one library call: the LayerNorm
     (``F.layer_norm``), one q/k/v projection (``F.linear``), the attention
     (SDPA) and the output projection with the residual (``F.linear`` and the
-    add). Parameters in bf16 for the library, as in ``composed``; the
-    kernels take the weights in bf16 too, so no cast is timed."""
+    add). Parameters in ``dtype`` for the library, as in ``composed``; the
+    kernels take the weights in ``dtype`` too, so no cast is timed. fp32
+    library calls run in fp32 (TF32 is off)."""
     import torch.nn.functional as F
 
     from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.ops.kernels import attention as attn
     from prpe_tpu_torch.ops.kernels import ln_mhsa as lm
 
-    dt = torch.bfloat16
+    dt = dtype
     x, params = ln_mhsa_inputs(b, t, c, dt, gen, device)
     lw, lb, wq, bq, wk, bk, wv, bv, wo, bo = params
     wq, wk, wv, wo = (w.to(dt) for w in (wq, wk, wv, wo))
@@ -318,23 +321,25 @@ def phase_ln_stages(gen, device, b: int, t: int = 192, c: int = 768, h: int = 12
     heads = lambda y: y.view(b, t, h, c // h).transpose(1, 2)  # noqa: E731
     m, es = b * t, x.element_size()
     gemm_bytes = (2 * m * c + c * c) * es + c * 4
+    tol, attn_tol = (5e-2, 2e-2) if dt == torch.bfloat16 else (1e-4, 1e-4)
     stages = {
         "layernorm": (lambda: lm.layernorm(x, lw, lb), lambda: lm.layernorm_plain(x, lw, lb),
                       lambda: F.layer_norm(x, (c,), lib[0], lib[1], 1e-12),
-                      2 * m * c * es + 2 * c * 4, 8 * m * c, "layernorm", 5e-2),
+                      2 * m * c * es + 2 * c * 4, 8 * m * c, "layernorm", tol),
         "q_projection": (lambda: lm.linear(xn, wq, bq), lambda: lm.linear_plain(xn, wq, bq),
                          lambda: F.linear(xn, wq, lib[2]), gemm_bytes, 2 * m * c * c,
-                         "linear", 5e-2),
+                         "linear", tol),
         "attention": (lambda: attn.mhsa_packed(q, k, v, h),
                       lambda: attn.mhsa_packed_plain(q, k, v, h),
                       lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v)),
-                      4 * m * c * es, 4 * b * h * t * t * (c // h), "mhsa", 2e-2),
+                      4 * m * c * es, 4 * b * h * t * t * (c // h), "mhsa", attn_tol),
         "out_projection": (lambda: lm.linear(o, wo, bo, residual=x),
                            lambda: lm.linear_plain(o, wo, bo, residual=x),
                            lambda: x + F.linear(o, wo, lib[3]), gemm_bytes + m * c * es,
-                           2 * m * c * c, "linear", 5e-2),
+                           2 * m * c * c, "linear", tol),
     }
     rows = {}
+    name_dt = str(dt).replace("torch.", "")
     for name, (kernel, plain, library, nbytes, ops, counter, tol) in stages.items():
         before = launches[counter]
         got = kernel()
@@ -343,11 +348,11 @@ def phase_ln_stages(gen, device, b: int, t: int = 192, c: int = 768, h: int = 12
             fail(f"{name} stage did not count its launch")
         err = float((got.float() - plain().float()).abs().max())
         if not err <= tol:
-            fail(f"{name} stage B={b} max abs err {err} > {tol}")
+            fail(f"{name} stage {name_dt} B={b} max abs err {err} > {tol}")
         bnd, by = bound_ms(nbytes, ops, PEAK_FLOPS[dt])
         rows[name] = dict(max_abs_err=err, ms=time_ms(kernel), library_ms=time_ms(library),
                           bound_ms=bnd, bound_by=by)
-    emit("ln_mhsa_stages", dtype="bfloat16", B=b, T=t, C=c, H=h, stages=rows,
+    emit("ln_mhsa_stages", dtype=name_dt, B=b, T=t, C=c, H=h, stages=rows,
          ms_sum=rows["layernorm"]["ms"] + 3 * rows["q_projection"]["ms"]
          + rows["attention"]["ms"] + rows["out_projection"]["ms"])
     return rows
@@ -418,18 +423,20 @@ def phase_odd_shapes(gen, device) -> None:
                 fail(f"fused_ln_mhsa {dtype} at B={b} T={t} C={c} H={h}: max abs err {err} > {tol}")
             checked.append(f"ln_mhsa {str(dtype)[6:]} B={b} T={t} C={c} H={h} err={err:.3g}")
     for b, t, k, n in ((3, 77, 32, 96), (1, 200, 96, 256), (2, 65, 256, 40)):
-        x, params = ln_mhsa_inputs(b, t, k, torch.bfloat16, gen, device)
-        w = torch.randn(n, k, generator=gen, device=device) * k ** -0.5
-        bias = 0.02 * torch.randn(n, generator=gen, device=device)
-        res = torch.randn(b, t, n, generator=gen, device=device).to(torch.bfloat16)
-        got = {"layernorm": (layernorm(x, *params[:2]), layernorm_plain(x, *params[:2])),
-               "linear": (linear(x, w, bias), linear_plain(x, w, bias)),
-               "linear+residual": (linear(x, w, bias, res), linear_plain(x, w, bias, res))}
-        for name, (a, want) in got.items():
-            err = float((a.float() - want.float()).abs().max())
-            if not err <= 5e-2:
-                fail(f"{name} bfloat16 at B={b} T={t} in={k} out={n}: max abs err {err} > 5e-2")
-            checked.append(f"{name} bfloat16 B={b} T={t} in={k} out={n} err={err:.3g}")
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-4)):
+            x, params = ln_mhsa_inputs(b, t, k, dtype, gen, device)
+            w = torch.randn(n, k, generator=gen, device=device) * k ** -0.5
+            bias = 0.02 * torch.randn(n, generator=gen, device=device)
+            res = torch.randn(b, t, n, generator=gen, device=device).to(dtype)
+            got = {"layernorm": (layernorm(x, *params[:2]), layernorm_plain(x, *params[:2])),
+                   "linear": (linear(x, w, bias), linear_plain(x, w, bias)),
+                   "linear+residual": (linear(x, w, bias, res), linear_plain(x, w, bias, res))}
+            dt = str(dtype)[6:]
+            for name, (a, want) in got.items():
+                err = float((a.float() - want.float()).abs().max())
+                if not err <= tol:
+                    fail(f"{name} {dt} at B={b} T={t} in={k} out={n}: max abs err {err} > {tol}")
+                checked.append(f"{name} {dt} B={b} T={t} in={k} out={n} err={err:.3g}")
     emit("odd_shapes", checked=checked)
 
 
@@ -543,8 +550,8 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
                   irnet_layers: int = 50, size: int = 640, batches=((32, 20), (128, 8)),
                   dtype=torch.bfloat16):
     """The full-width cascade in ``dtype`` unless a smaller ``pose`` / ``size``
-    is given, once per attention mode; the first mode is also profiled.
-    Returns the launches of one call per mode."""
+    is given, once per attention mode, each mode also profiled. Returns the
+    launches of one call per mode."""
     from prpe_tpu_torch.core.config import CascadeConfig, DetectionConfig, PoseConfig
     from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
     from prpe_tpu_torch.ops.kernels import launches, reset_launches
@@ -580,8 +587,7 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
                              f"expected {want}")
                     check_result(res, batch, cfg.max_persons, cfg.max_faces, batch,
                                  pose.num_keypoints)
-                    if mode == modes[0]:
-                        profile = profile_top(lambda: run(images[batch], gallery))
+                    profile = profile_top(lambda: run(images[batch], gallery))
                 for _ in range(2):
                     run(images[batch], gallery)
                 torch.cuda.synchronize()
@@ -596,14 +602,14 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
              dtype=dt, attn_mode=mode, images_per_s={f"b{b}": r for b, r in rates.items()},
              launches_per_call=counts[mode], init_s=init_s,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-        if mode == modes[0]:
-            # busy share: kernel time of one profiled call over one timed call's wall time
-            b0 = batches[0][0]
-            wall_ms = 1e3 * b0 / rates[b0]
-            emit(f"profile_b{b0}" + ("" if dtype == torch.bfloat16 else f"_{dt}"),
-                 attn_mode=mode, wall_ms_per_call=wall_ms,
-                 device_busy_share=profile.get("kernel_ms", 0.0) / wall_ms,
-                 attention_kernel_ms=profile["attention_ms"], top_device_ms=profile)
+        # busy share: kernel time of one profiled call over one timed call's wall time
+        b0 = batches[0][0]
+        wall_ms = 1e3 * b0 / rates[b0]
+        emit(f"profile_b{b0}" + ("" if dtype == torch.bfloat16 else f"_{dt}"),
+             attn_mode=mode, wall_ms_per_call=wall_ms,
+             device_busy_share=profile.get("kernel_ms", 0.0) / wall_ms,
+             attention_kernel_ms=profile["attention_ms"], ln_mhsa_stage_ms=profile["ln_mhsa"],
+             top_device_ms=profile)
     return counts
 
 
@@ -623,9 +629,14 @@ def profile_top(fn, top: int = 12):
     rows.sort(reverse=True)
     # the attention kernels of the port (K2 and K3 in either dtype, K4's stage)
     attention = [r for r in rows if "mhsa_" in r[2] and "_kernel" in r[2]]
+    # K4's LayerNorm and GEMM kernels (either dtype); its attention is the above
+    ln_mhsa = {stage: sum(r[0] for r in rows if any(f"::{p}" in r[2] for p in patterns))
+               for stage, patterns in (("layernorm", ("layernorm_kernel",)),
+                                       ("gemm", ("gemm_f32_kernel", "gemm_bf16_kernel")))}
+    ln_mhsa["attention"] = sum(r[0] for r in attention)
     return {"kernel_ms": sum(r[0] for r in rows), "launches": sum(r[1] for r in rows),
             "attention_ms": sum(r[0] for r in attention),
-            "attention_launches": sum(r[1] for r in attention),
+            "attention_launches": sum(r[1] for r in attention), "ln_mhsa": ln_mhsa,
             "top": [list(r) for r in rows[:top]]}
 
 
@@ -697,14 +708,15 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(0)
     nms_rows, mhsa_rows, bhtd_rows, ln_rows = kernel_rows(gen, device)
     fp32_cascade = lambda: phase_cascade(  # noqa: E731
-        device, modes=("pallas_packed",), batches=((32, 10),), dtype=torch.float32)
+        device, batches=((32, 10),), dtype=torch.float32)
     if args.kernels_only:
         return 0
     if args.compare:
         fp32_cascade()
         return 0
-    for b in (32, 128):
-        phase_ln_stages(gen, device, b)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (32, 128):
+            phase_ln_stages(gen, device, dtype, b)
     phase_odd_shapes(gen, device)
     phase_reference(device)
     mode_counts = phase_attn_modes(device)
@@ -737,6 +749,7 @@ def main() -> int:
     kernels.append(dict(name="ln_mhsa", route="cuda", source=src + "ln_mhsa.cu",
                         replaces=pallas + "attention_kernel.py:115", attn_mode="pallas_lnfused",
                         launches=counts["pallas_lnfused"]["ln_mhsa"],
+                        launches_f32=counts_f32["pallas_lnfused"]["ln_mhsa"],
                         composed_library_ms=ln_rows[0]["composed_library_ms"],
                         composed_library_ms_b128=ln_rows[1]["composed_library_ms"],
                         composed_library_ms_f32=ln_rows[2]["composed_library_ms"],

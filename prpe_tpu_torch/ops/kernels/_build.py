@@ -44,7 +44,9 @@ SIGNATURES = {
     "ln_mhsa": {
         "prpe_ln_mhsa_f32": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
         "prpe_ln_mhsa_bf16": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
+        "prpe_layernorm_f32": [_P] * 4 + [_I, _I, _F, _P],
         "prpe_layernorm_bf16": [_P] * 4 + [_I, _I, _F, _P],
+        "prpe_linear_f32": [_P] * 5 + [_I] * 3 + [_P],
         "prpe_linear_bf16": [_P] * 5 + [_I] * 3 + [_P],
     },
 }

@@ -23,6 +23,10 @@ from prpe_tpu_torch.ops.kernels import _build
 from prpe_tpu_torch.ops.kernels.attention import MAX_T, mhsa_packed_plain
 
 _SYMBOL = {torch.float32: "prpe_ln_mhsa_f32", torch.bfloat16: "prpe_ln_mhsa_bf16"}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the LayerNorm kernel holds a row in registers: at most 16 16-byte vectors a
+# lane of a warp, 2048 fp32 or 4096 bf16 values
+_LN_MAX_BYTES = 32 * 16 * 16
 
 
 def layernorm_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -76,22 +80,40 @@ def _check_cuda(name: str, x: torch.Tensor, others, dtypes) -> None:
         raise ValueError(f"{name}: dtype {x.dtype} not in {sorted(map(str, dtypes))}")
 
 
+def _check_row_width(name: str, x: torch.Tensor, cols: int) -> None:
+    """A row of the LayerNorm kernel: whole 16-byte vectors that fit its
+    registers."""
+    row_bytes = cols * x.element_size()
+    if row_bytes % 16 or row_bytes > _LN_MAX_BYTES:
+        raise ValueError(f"{name}: C = {cols} {x.dtype} values must be a multiple of 16 bytes "
+                         f"and at most {_LN_MAX_BYTES // x.element_size()}")
+
+
+def _check_aligned(name: str, tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: every operand must start on a 16-byte boundary")
+
+
 def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               eps: float = 1e-12) -> torch.Tensor:
     """The half-block's LayerNorm stage over the last axis: the CUDA kernel
-    (bf16) for CUDA tensors, :func:`layernorm_plain` for CPU tensors."""
+    (fp32 or bf16) for CUDA tensors, :func:`layernorm_plain` for CPU
+    tensors."""
     if x.device.type == "cpu":
         return layernorm_plain(x, w, b, eps)
-    _check_cuda("layernorm", x, (w, b), (torch.bfloat16,))
+    _check_cuda("layernorm", x, (w, b), tuple(_SUFFIX))
     cols = x.shape[-1]
     if not x.is_contiguous() or tuple(w.shape) != (cols,) or tuple(b.shape) != (cols,):
         raise ValueError(f"layernorm: x {tuple(x.shape)} must be contiguous, w and b ({cols},)")
+    _check_row_width("layernorm", x, cols)
     w, b = w.float().contiguous(), b.float().contiguous()
+    _check_aligned("layernorm", (x, w, b))
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    err = _call(x, _build.load("ln_mhsa").prpe_layernorm_bf16, x.data_ptr(), w.data_ptr(),
-                b.data_ptr(), y.data_ptr(), x.numel() // cols, cols, float(eps))
+    err = _call(x, getattr(_build.load("ln_mhsa"), f"prpe_layernorm_{_SUFFIX[x.dtype]}"),
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // cols, cols,
+                float(eps))
     _build.check(err, "layernorm launch")
     _build.launches["layernorm"] += 1
     return y
@@ -100,12 +122,12 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The half-block's GEMM stage, ``round(x @ w^T + b)`` (``+ residual``
-    after the rounding): the CUDA kernel (bf16) for CUDA tensors,
+    after the rounding): the CUDA kernel (fp32 or bf16) for CUDA tensors,
     :func:`linear_plain` for CPU tensors."""
     if x.device.type == "cpu":
         return linear_plain(x, w, b, residual)
     others = (w, b) if residual is None else (w, b, residual)
-    _check_cuda("linear", x, others, (torch.bfloat16,))
+    _check_cuda("linear", x, others, tuple(_SUFFIX))
     k = x.shape[-1]
     n = w.shape[0]
     if not x.is_contiguous() or w.dim() != 2 or w.shape[1] != k or tuple(b.shape) != (n,):
@@ -118,14 +140,13 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                  or residual.dtype != x.dtype or not residual.is_contiguous()):
         raise ValueError(f"linear: residual must be a contiguous {out_shape} {x.dtype} tensor")
     w, b = w.to(x.dtype).contiguous(), b.float().contiguous()
-    ptrs = (x, w, b) if residual is None else (x, w, b, residual)
-    if any(p.data_ptr() % 16 for p in ptrs):
-        raise ValueError("linear: every operand must start on a 16-byte boundary")
+    _check_aligned("linear", (x, w, b) if residual is None else (x, w, b, residual))
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    err = _call(x, _build.load("ln_mhsa").prpe_linear_bf16, x.data_ptr(), w.data_ptr(),
-                b.data_ptr(), None if residual is None else residual.data_ptr(), out.data_ptr(),
+    err = _call(x, getattr(_build.load("ln_mhsa"), f"prpe_linear_{_SUFFIX[x.dtype]}"),
+                x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                None if residual is None else residual.data_ptr(), out.data_ptr(),
                 x.numel() // k, n, k)
     _build.check(err, "linear launch")
     _build.launches["linear"] += 1
@@ -154,11 +175,11 @@ def fused_ln_mhsa(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
         raise ValueError(f"fused_ln_mhsa: head dim {d} not in (16, 32, 64, 128)")
     if t > MAX_T:
         raise ValueError(f"fused_ln_mhsa: T = {t} > {MAX_T}")
+    _check_row_width("fused_ln_mhsa", x, c)
     wq, wk, wv, wo = (w.to(x.dtype).contiguous() for w in (wq, wk, wv, wo))
     ln_w, ln_b, bq, bk, bv, bo = (p.float().contiguous() for p in (ln_w, ln_b, bq, bk, bv, bo))
     ptrs = (x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)
-    if any(p.data_ptr() % 16 for p in ptrs):
-        raise ValueError("fused_ln_mhsa: every operand must start on a 16-byte boundary")
+    _check_aligned("fused_ln_mhsa", ptrs)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out

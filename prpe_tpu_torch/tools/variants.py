@@ -1,6 +1,6 @@
 """Time variants of a kernel source on the card, in turns, in one process.
 
-    python3 -m prpe_tpu_torch.tools.variants {nms,mhsa} \\
+    python3 -m prpe_tpu_torch.tools.variants {nms,mhsa,ln_mhsa} \\
         [--variant NAME 'OLD=>NEW' ['OLD=>NEW' ...]] ... [--rounds 2]
 
 A variant is ``prpe_tpu_torch/csrc/`` with each ``OLD`` text replaced by
@@ -15,7 +15,14 @@ kernel) and held against the plain PyTorch version:
   K = 256, every candidate valid and 70 % valid, threshold 0.65 (keep masks
   must equal ``nms_keep_plain``);
 - ``mhsa``: ``prpe_mhsa_packed_f32`` at B = 32 and 128, T = 192, H = 12,
-  D = 64 (max abs error against ``mhsa_packed_plain``).
+  D = 64 (max abs error against ``mhsa_packed_plain``);
+- ``ln_mhsa``: the fused half-block ``prpe_ln_mhsa_f32`` at B = 32 and 128
+  and ``prpe_ln_mhsa_bf16`` at B = 32 (T = 192, C = 768, H = 12), then the
+  fp32 stages alone at B = 32 and 128: ``prpe_linear_f32`` (one 768 x 768
+  projection, M = B * 192) and ``prpe_layernorm_f32`` (max abs error against
+  ``ln_mhsa_plain``, ``linear_plain``, ``layernorm_plain``). The stages are
+  also timed as one library call each (``F.linear``, ``F.layer_norm``, fp32
+  without TF32), as the pseudo-variant ``library``.
 
 Prints one JSON line per variant and shape with the card's name and power
 limit, and the ``ptxas`` register and spill lines of each build.
@@ -67,7 +74,8 @@ def build(lib: str, variants: dict) -> dict:
     for name, proc in procs.items():
         log, _ = proc.communicate()
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("entry function", "registers", "spill")) \
+                    or "error" in line.lower():
                 print(f"{name}: {line.strip()}", flush=True)
         if proc.returncode:
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
@@ -107,7 +115,7 @@ def nms_cases(gen):
             def err(keep=keep, want=want):
                 return float((keep != want).sum())
 
-            yield dict(B=b, K=k, all_valid=all_valid), call, err
+            yield dict(B=b, K=k, all_valid=all_valid), call, err, None
 
 
 def mhsa_cases(gen):
@@ -125,12 +133,62 @@ def mhsa_cases(gen):
         def err(o=o, want=want):
             return float((o - want).abs().max())
 
-        yield dict(B=b, T=t, H=h, D=d, dtype="float32"), call, err
+        yield dict(B=b, T=t, H=h, D=d, dtype="float32"), call, err, None
+
+
+def ln_mhsa_cases(gen):
+    import torch.nn.functional as F
+
+    from prpe_tpu_torch.ops.kernels.ln_mhsa import layernorm_plain, linear_plain, ln_mhsa_plain
+
+    t, c, h = 192, 768, 12
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    n = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+    for dtype, b in ((torch.float32, 32), (torch.float32, 128), (torch.bfloat16, 32)):
+        x = n(b, t, c).to(dtype)
+        params = [1 + 0.1 * n(c), 0.1 * n(c)]
+        for _ in range(4):
+            params += [(n(c, c) * c ** -0.5).to(dtype), 0.02 * n(c)]
+        out, ws = torch.empty_like(x), torch.empty(4 * b * t * c, dtype=dtype, device="cuda")
+        want = ln_mhsa_plain(x, *params, heads=h)
+        sym = "prpe_ln_mhsa_f32" if dtype == torch.float32 else "prpe_ln_mhsa_bf16"
+
+        def call(dll, x=x, params=params, out=out, ws=ws, b=b, sym=sym):
+            return getattr(dll, sym)(x.data_ptr(), *(p.data_ptr() for p in params),
+                                     out.data_ptr(), ws.data_ptr(), b, t, c, h, 1e-12,
+                                     (c // h) ** -0.5, stream())
+
+        def err(out=out, want=want):
+            return float((out.float() - want.float()).abs().max())
+
+        yield (dict(stage="ln_mhsa", B=b, T=t, C=c, H=h, dtype=str(dtype)[6:]), call, err,
+               None)
+    for b in (32, 128):
+        m = b * t
+        x, w, bias = n(m, c), n(c, c) * c ** -0.5, 0.02 * n(c)
+        g, beta = 1 + 0.1 * n(c), 0.1 * n(c)
+        y = torch.empty_like(x)
+        stages = (
+            ("linear", lambda dll, x=x, w=w, bias=bias, y=y, m=m: dll.prpe_linear_f32(
+                x.data_ptr(), w.data_ptr(), bias.data_ptr(), None, y.data_ptr(), m, c, c,
+                stream()), linear_plain(x, w, bias),
+             lambda x=x, w=w, bias=bias: F.linear(x, w, bias)),
+            ("layernorm", lambda dll, x=x, g=g, beta=beta, y=y, m=m: dll.prpe_layernorm_f32(
+                x.data_ptr(), g.data_ptr(), beta.data_ptr(), y.data_ptr(), m, c, 1e-12,
+                stream()), layernorm_plain(x, g, beta),
+             lambda x=x, g=g, beta=beta: F.layer_norm(x, (c,), g, beta, 1e-12)),
+        )
+        for stage, call, want, library in stages:
+            yield (dict(stage=stage, M=m, C=c, dtype="float32"), call,
+                   lambda want=want, y=y: float((y - want).abs().max()), library)
+
+
+CASES = {"nms": nms_cases, "mhsa": mhsa_cases, "ln_mhsa": ln_mhsa_cases}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("lib", choices=("nms", "mhsa"))
+    parser.add_argument("lib", choices=("nms", "mhsa", "ln_mhsa"))
     parser.add_argument("--variant", nargs="+", action="append", default=[],
                         metavar=("NAME", "EDIT"), help="a name, then OLD=>NEW edits")
     parser.add_argument("--rounds", type=int, default=2)
@@ -145,16 +203,21 @@ def main() -> int:
     libs = build(args.lib, {name: make_variant(args.lib, name, edits)
                             for name, edits in specs.items()})
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = list((nms_cases if args.lib == "nms" else mhsa_cases)(gen))
+    cases = list(CASES[args.lib](gen))
     times = {(name, i): [] for name in libs for i in range(len(cases))}
+    times.update({("library", i): [] for i, case in enumerate(cases) if case[3]})
     errs = {}
     for _ in range(args.rounds):
         for name, dll in libs.items():
-            for i, (_, call, err) in enumerate(cases):
+            for i, (_, call, err, _) in enumerate(cases):
                 _build.check(call(dll), f"{name} launch")
                 torch.cuda.synchronize()
                 errs[name, i] = max(errs.get((name, i), 0.0), err())
                 times[name, i].append(event_ms(lambda: call(dll)))
+        for i, (_, _, _, library) in enumerate(cases):
+            if library:
+                errs["library", i] = None
+                times["library", i].append(event_ms(library))
     for (name, i), ms in times.items():
         print(json.dumps({"lib": args.lib, "variant": name, **cases[i][0], "ms": ms,
                           "err": errs[name, i], "card": card}), flush=True)

@@ -33,11 +33,11 @@ def port_params(params):
     return [torch.from_numpy(np.ascontiguousarray(p.T if p.ndim == 2 else p)) for p in params]
 
 
-@pytest.mark.parametrize("b,t,c,heads", [(2, 24, 64, 4), (3, 10, 32, 2)])
+@pytest.mark.parametrize("b,t,c,heads", [(2, 24, 64, 4), (3, 10, 32, 2), (1, 192, 768, 12)])
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
 def test_plain_ln_mhsa_matches_pallas(b, t, c, heads, dtype, tol):
     """Tolerances are the JAX package's own for this kernel
-    (tests/test_pallas_attention.py)."""
+    (tests/test_pallas_attention.py); the last shape is ViT-B's width."""
     x, params = half_block_inputs(b, t, c, seed=b)
     want = jfused_ln_mhsa(jnp.asarray(x, getattr(jnp, dtype)), *params, heads=heads,
                           interpret=True)
@@ -98,13 +98,17 @@ def test_plain_stages_compose_to_ln_mhsa_plain(dtype):
     assert torch.equal(want, _old_ln_mhsa_plain(xt, *port_params(params), heads=4))
 
 
-@pytest.mark.parametrize("with_residual", [False, True])
-def test_linear_plain_matches_pallas_dense(with_residual):
+@pytest.mark.parametrize("dtype,with_residual", [
+    pytest.param("bfloat16", False, id="False"), pytest.param("bfloat16", True, id="True"),
+    pytest.param("float32", False, id="float32-False"),
+    pytest.param("float32", True, id="float32-True")])
+def test_linear_plain_matches_pallas_dense(dtype, with_residual):
     """linear_plain against the Pallas body's ``dense`` (``dot_general`` with
     ``preferred_element_type=float32``, plus the fp32 bias, rounded once),
-    then ``x + y`` as the body adds its residual, in bf16 through jax.numpy.
-    The two fp32 sums run in different orders, so a result may sit one bf16
-    step (2**-8 relative) away."""
+    then ``x + y`` as the body adds its residual, in ``dtype`` through
+    jax.numpy. The two fp32 sums run in different orders, so a bf16 result
+    may sit one bf16 step (2**-8 relative) away, an fp32 one a few fp32 ulps
+    (1e-5 on these unit-scale sums of 64 products)."""
     import jax
 
     rng = np.random.default_rng(12)
@@ -113,25 +117,29 @@ def test_linear_plain_matches_pallas_dense(with_residual):
     w = rng.normal(0, k ** -0.5, (k, n)).astype(np.float32)  # JAX (in, out)
     b = rng.normal(0, 0.02, (n,)).astype(np.float32)
     res = rng.normal(0, 1, (m, n)).astype(np.float32)
-    ja = jnp.asarray(a, jnp.bfloat16)
-    y = jax.lax.dot_general(ja, jnp.asarray(w, jnp.bfloat16), (((1,), (0,)), ((), ())),
+    jdt, td = getattr(jnp, dtype), getattr(torch, dtype)
+    y = jax.lax.dot_general(jnp.asarray(a, jdt), jnp.asarray(w, jdt), (((1,), (0,)), ((), ())),
                             preferred_element_type=jnp.float32)
-    want = (y + jnp.asarray(b)).astype(jnp.bfloat16)
+    want = (y + jnp.asarray(b)).astype(jdt)
     if with_residual:
-        want = jnp.asarray(res, jnp.bfloat16) + want
-    got = linear_plain(torch.from_numpy(a).bfloat16(), torch.from_numpy(w.T.copy()),
+        want = jnp.asarray(res, jdt) + want
+    got = linear_plain(torch.from_numpy(a).to(td), torch.from_numpy(w.T.copy()),
                        torch.from_numpy(b),
-                       torch.from_numpy(res).bfloat16() if with_residual else None)
-    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+                       torch.from_numpy(res).to(td) if with_residual else None)
+    assert got.dtype == td and got.shape == (m, n)
     want = np.asarray(want, np.float32)
     got = got.float().numpy()
-    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7)
-    assert np.mean(got == want) > 0.95
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -7)
+        assert np.mean(got == want) > 0.95
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_stage_wrappers_cpu_path_is_plain():
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_stage_wrappers_cpu_path_is_plain(dtype):
     x, params = half_block_inputs(2, 12, 32, seed=13)
-    xt = torch.from_numpy(x).bfloat16()
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
     lw, lb, wq, bq = port_params(params)[:4]
     assert torch.equal(layernorm(xt, lw, lb), layernorm_plain(xt, lw, lb))
     assert torch.equal(linear(xt, wq, bq), linear_plain(xt, wq, bq))
