@@ -36,7 +36,25 @@ exit on the first fault:
    dtype the JAX package's CLI and ``bench.py`` serve in off the TPU) in the
    default mode and under ``pallas_lnfused``: launches checked, images/s at
    batch 32, and a profile of one call with the device ms of the attention
-   kernels and of K4's LayerNorm, GEMM and attention stages.
+   kernels and of K4's LayerNorm, GEMM and attention stages;
+6. combined_reference: a tiny fp32 combined model (``models/combined.py``)
+   on the card against the same weights on the CPU, for each task, within
+   1e-4 of each output's largest magnitude (at least 1); K2 launched once
+   per ViT block of its ``pose``;
+7. combined: the full-width combined model (ResNet-50 trunk, YOLOv11-n
+   branches at 160^2, IR-50 with a 64-channel input and the 85 742-class
+   AdaFace prototypes, ViTPose-B) at batch 16 of 640^2 images, bf16 and
+   fp32: ms per forward and images/s for each task, the launches of each
+   (K2 12 times in ``pose``, no kernel elsewhere), and a kernel profile of
+   ``pose`` and of ``person_detection`` in each dtype;
+8. infer_cli: ``cli/infer.py::run`` at its full preset on 4 frames of
+   640^2 with 2 enrolled faces: its JSON schema, the NMS kernel launched
+   twice and K2 12 times per call, the wall ms per call and a kernel
+   profile of one call;
+9. export: ``torch.export`` of ViTPose-B and of the combined model's pose
+   path at batch 2 (``cli/export.py``): the program holds the node
+   ``prpe::mhsa_packed``, launches K2 when run, and gives the eager
+   outputs within 1e-5 of their largest magnitude.
 
 Every phase prints one JSON line with the card's name and power limit. The
 last two lines are the ``kernels`` summary and ``{"ok": true, ...}``. The
@@ -46,8 +64,9 @@ build fails the run if ``ptxas`` reports a spill in any kernel.
 
 runs the serving-shape kernel rows only, importing ``prpe_tpu_torch`` from
 the checkout at DIR (default: this one), so that two trees can be timed in
-one call on one card; ``--compare`` runs those rows and phase 5 (both
-modes), and no phase that needs the stage entry points alone.
+one call on one card; ``--compare`` runs those rows, the bf16 cascade at
+batch 32 in the default mode and phase 5 (both modes), and no phase that
+needs the stage entry points alone or the combined model.
 """
 
 from __future__ import annotations
@@ -640,6 +659,215 @@ def profile_top(fn, top: int = 12):
             "top": [list(r) for r in rows[:top]]}
 
 
+# --------------------------------------------------------------- combined ---
+
+def tiny_combined_config():
+    """A (1, 1, 1, 1) trunk, detection adapters at 32^2, IR-18 on 32^2 with
+    10 classes, a 1-layer ViT of width 32 at 64x48 (the CPU tests' size)."""
+    from prpe_tpu_torch.core.config import (
+        AdaFaceConfig, CombinedModelConfig, DetectionConfig, PoseConfig,
+    )
+
+    return CombinedModelConfig(
+        backbone_stages=(1, 1, 1, 1), detection=DetectionConfig(adapter_size=(32, 32)),
+        face=AdaFaceConfig(arch="ir_18", num_classes=10, input_size=(32, 32)),
+        pose=PoseConfig(input_size=(64, 48), heatmap_size=(16, 12), vit_hidden=32,
+                        vit_layers=1, vit_heads=2))
+
+
+def combined_tasks(model, x, labels):
+    """name -> call of each entry point of the combined model: the four
+    tasks of ``forward`` and the face logits (no EMA update)."""
+    from prpe_tpu_torch.core.config import TASKS
+
+    calls = {task: (lambda task=task: model(x, task)) for task in TASKS}
+    calls["face_logits"] = lambda: model(x, "face_recognition", labels, train=False)
+    return calls
+
+
+def flat(out):
+    """A task's output as a list of tensors."""
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def phase_combined_reference(device) -> None:
+    """The tiny fp32 combined model on the card (kernels) against the same
+    weights and images on the CPU (plain versions), every task; K2 once in
+    ``pose`` (one ViT block), no kernel in any other task."""
+    from prpe_tpu_torch.models.combined import CombinedModel
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    cfg = tiny_combined_config()
+    cpu = CombinedModel(cfg, device="cpu", seed=2)
+    gpu = CombinedModel(cfg, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(9)
+    x = torch.rand(2, 64, 64, 3, generator=gen)
+    labels = torch.tensor([1, 7])
+    errs, counts = {}, {}
+    want_calls = combined_tasks(cpu, x, labels)
+    with torch.inference_mode():
+        for name, fn in combined_tasks(gpu, x.to(device), labels.to(device)).items():
+            reset_launches()
+            got = flat(fn())
+            torch.cuda.synchronize()
+            counts[name] = {k: v for k, v in launches.items() if v}
+            want = {"mhsa": cfg.pose.vit_layers} if name == "pose_estimation" else {}
+            if counts[name] != want:
+                fail(f"combined_reference: {name} launched {counts[name]}, expected {want}")
+            err = 0.0
+            for g, w in zip(got, flat(want_calls[name]()), strict=True):
+                tol = 1e-4 * max(1.0, float(w.abs().max()))
+                e = float((g.cpu().float() - w.float()).abs().max())
+                if not e <= tol:
+                    fail(f"combined_reference: {name} differs by {e} > {tol} between card and CPU")
+                err = max(err, e)
+            errs[name] = err
+    emit("combined_reference", max_abs_err=errs, launches=counts)
+
+
+def phase_combined(device, batch: int = 16, size: int = 640, runs: int = 10) -> dict:
+    """The full-width combined model (``CombinedModelConfig()``) in bf16 and
+    fp32 at ``batch`` images of ``size``^2: per task, ms per forward (CUDA
+    events, calls queued back to back) and images/s, the launches of one
+    forward with every counter at zero before it; a kernel profile of the
+    fp32 ``pose``. Returns K2's launches per ``pose`` call per dtype."""
+    from prpe_tpu_torch.core.config import CombinedModelConfig
+    from prpe_tpu_torch.models.combined import CombinedModel
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    cfg = CombinedModelConfig()
+    k2 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        t0 = time.perf_counter()
+        model = CombinedModel(cfg, dtype, device=device, seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=device).manual_seed(10)
+        x = torch.rand(batch, size, size, 3, generator=gen, device=device)
+        labels = torch.randint(0, cfg.face.num_classes, (batch,), generator=gen, device=device)
+        rows = {}
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            for name, fn in combined_tasks(model, x, labels).items():
+                reset_launches()
+                out = flat(fn())
+                torch.cuda.synchronize()
+                counts = {k: v for k, v in launches.items() if v}
+                want = {"mhsa": cfg.pose.vit_layers} if name == "pose_estimation" else {}
+                if counts != want:
+                    fail(f"combined {dt}: {name} launched {counts}, expected {want}")
+                if not all(bool(torch.isfinite(t).all()) for t in out):
+                    fail(f"combined {dt}: {name} has non-finite outputs")
+                ms = time_ms(fn, runs=runs, warmup=2)
+                rows[name] = dict(ms_per_forward=ms, images_per_s=batch * 1e3 / ms,
+                                  launches=counts, shapes=[list(t.shape) for t in out])
+            k2[dt] = rows["pose_estimation"]["launches"]["mhsa"]
+            if rows["pose_estimation"]["shapes"] != [[batch, 17, 64, 48]]:
+                fail(f"combined {dt}: heatmaps of shape {rows['pose_estimation']['shapes']}")
+            profiles = {task: profile_top(lambda task=task: model(x, task), top=16)
+                        for task in ("pose_estimation", "person_detection")}
+        emit("combined", dtype=dt, batch=batch, image_size=size, tasks=rows, init_s=init_s,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             k2_launches_per_pose=k2[dt], profiles=profiles)
+        del model
+        torch.cuda.empty_cache()
+    return k2
+
+
+def check_infer_json(results, n: int) -> None:
+    """The keys of ``cli/infer.py``'s JSON (the JAX package's CLI's)."""
+    if len(results) != n:
+        fail(f"infer_cli: {len(results)} results for {n} frames")
+    for r in results:
+        if set(r) != {"image", "persons", "faces", "poses"}:
+            fail(f"infer_cli: result keys {sorted(r)}")
+        for key, fields in (("persons", {"box", "score", "gated"}),
+                            ("faces", {"box", "score", "identity", "similarity"}),
+                            ("poses", {"box", "keypoints", "scores"})):
+            for item in r[key]:
+                if set(item) != fields:
+                    fail(f"infer_cli: {key} entry keys {sorted(item)}")
+                if key == "poses" and len(item["keypoints"]) != 17:
+                    fail("infer_cli: a pose without 17 keypoints")
+
+
+def phase_infer_cli(device, frames: int = 4, faces: int = 2, calls: int = 5) -> dict:
+    """``cli/infer.py::run`` (the CLI's path on arrays) at the full preset,
+    fp32 as the CLI serves: 4 uint8 frames of 640^2 and 2 enrolled uint8
+    faces of 112^2 from a seed; the launches of one call with every counter
+    at zero before it, the JSON schema, and the wall ms per call."""
+    import numpy as np
+
+    from prpe_tpu_torch.cli import infer
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    model = infer.build_model("full", device=device)
+    rng = np.random.default_rng(11)
+    images = rng.integers(0, 256, (frames, 640, 640, 3), dtype=np.uint8)
+    enroll = rng.integers(0, 256, (faces, 112, 112, 3), dtype=np.uint8)
+    reset_launches()
+    results = infer.run(model, images, enroll, threshold=0.4)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    want = expected_launches("pallas_packed", model.pose_cfg.vit_layers, nms=2)
+    if counts != want:
+        fail(f"infer_cli launched {counts}, expected {want}")
+    check_infer_json(results, frames)
+    json.dumps(results)
+    t = time.perf_counter()
+    for _ in range(calls):
+        infer.run(model, images, enroll, threshold=0.4)
+    wall_ms = (time.perf_counter() - t) / calls * 1e3
+    profile = profile_top(lambda: infer.run(model, images, enroll, threshold=0.4))
+    emit("infer_cli", frames=frames, enrolled=faces, launches_per_call=counts,
+         wall_ms_per_call=wall_ms, device_busy_share=profile["kernel_ms"] / wall_ms,
+         persons=sum(len(r["persons"]) for r in results),
+         faces=sum(len(r["faces"]) for r in results), poses=sum(len(r["poses"]) for r in results),
+         profile=profile)
+    return counts
+
+
+def phase_export(device, batch: int = 2) -> dict:
+    """``torch.export`` (``cli/export.py``) of ViTPose-B and of the combined
+    model's pose path at full width, fp32: the graph holds
+    ``prpe::mhsa_packed``, running the program launches K2 once per ViT
+    block, and its heatmaps equal the eager ones within 1e-5 of their
+    largest magnitude."""
+    from prpe_tpu_torch.cli import export
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    rows = {}
+    for name in ("vitpose", "combined_pose"):
+        model, x = export.build_program(name, batch, 640, "full", device)
+        x = torch.rand(x.shape, generator=torch.Generator(device=device).manual_seed(12),
+                       device=device)
+        t0 = time.perf_counter()
+        program = export.export_program(model, x)
+        export_s = time.perf_counter() - t0
+        nodes = [str(n.target) for n in program.graph.nodes if "prpe" in str(n.target)]
+        if nodes.count("prpe.mhsa_packed.default") != 12:
+            fail(f"export: {name} graph holds {nodes}, expected 12 prpe::mhsa_packed nodes")
+        with torch.inference_mode():
+            want = model(x)
+            reset_launches()
+            got = program.module()(x)
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in launches.items() if v}
+        if counts != {"mhsa": 12}:
+            fail(f"export: the {name} program launched {counts}, expected {{'mhsa': 12}}")
+        err = float((got - want).abs().max())
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        if not err <= tol:
+            fail(f"export: {name} program differs from eager by {err} > {tol}")
+        rows[name] = dict(max_abs_err=err, launches=counts, prpe_nodes=len(nodes),
+                          export_s=export_s, heatmaps=list(got.shape))
+        del program, model
+    emit("export", batch=batch, programs=rows)
+    return rows
+
+
 def report_build(logs) -> None:
     """Print each kernel's ``ptxas`` lines (entry, registers, spills, wgmma
     notes) and fail on a spill or a compiler error."""
@@ -712,6 +940,7 @@ def main() -> int:
     if args.kernels_only:
         return 0
     if args.compare:
+        phase_cascade(device, modes=("pallas_packed",), batches=((32, 20),))
         fp32_cascade()
         return 0
     for dtype in (torch.bfloat16, torch.float32):
@@ -722,6 +951,10 @@ def main() -> int:
     mode_counts = phase_attn_modes(device)
     counts = phase_cascade(device)
     counts_f32 = fp32_cascade()
+    phase_combined_reference(device)
+    phase_combined(device)
+    phase_infer_cli(device)
+    phase_export(device)
 
     src, pallas = "prpe_tpu_torch/csrc/", "prpe_tpu/ops/pallas/"
     row = lambda r: {k: r[k] for k in ROW_KEYS}  # noqa: E731

@@ -1,14 +1,22 @@
-"""Configuration dataclasses for the serving cascade.
+"""Configuration dataclasses for the serving cascade and the combined model.
 
-Own copies of ``prpe_tpu.core.config``'s detection, face, pose and cascade
-configs, with the same field names and defaults (the tests check each
-field against the JAX package). Frozen, so a config can key a cache.
+Own copies of ``prpe_tpu.core.config``'s detection, face, pose, combined
+model and cascade configs, with the same field names and defaults (the
+tests check each field against the JAX package). Frozen, so a config can
+key a cache.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+TASKS = (
+    "person_detection",
+    "face_detection",
+    "face_recognition",
+    "pose_estimation",
+)
 
 
 @dataclass(frozen=True)
@@ -71,6 +79,23 @@ class PoseConfig:
     vit_mlp_ratio: int = 4
     patch_size: int = 16
     decoder_scale_factor: int = 4  # "simple" decoder: bilinear x4 + 3x3 conv
+
+
+@dataclass(frozen=True)
+class CombinedModelConfig:
+    """The shared-trunk multi-task model: ResNet trunk, three adapters and
+    four task branches."""
+
+    backbone_channels: int = 2048
+    # ResNet bottleneck counts per stage; (3, 4, 6, 3) == ResNet-50
+    backbone_stages: Tuple[int, int, int, int] = (3, 4, 6, 3)
+    # rematerialise the trunk's blocks on the backward pass; no effect on a
+    # forward pass
+    remat_backbone: bool = False
+    image_size: int = 640
+    detection: DetectionConfig = field(default_factory=DetectionConfig)
+    face: AdaFaceConfig = field(default_factory=AdaFaceConfig)
+    pose: PoseConfig = field(default_factory=PoseConfig)
 
 
 @dataclass(frozen=True)

@@ -160,8 +160,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     then sets its own special values (positional tables, head biases).
     """
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             fan_in = m.weight[0].numel()
+            if isinstance(m, nn.ConvTranspose2d):  # (in, out, kh, kw)
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel()
             m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -183,7 +185,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def materialize(model: nn.Module, device: torch.device, seed: int = 0) -> nn.Module:
     """Allocate a module built on the meta device on ``device`` and fill it
-    from a ``torch.Generator`` on that device seeded with ``seed``."""
+    from a ``torch.Generator`` on that device seeded with ``seed``. On the
+    meta device itself it stays shapes only, with nothing to fill."""
+    if device.type == "meta":
+        return model.eval()
     model.to_empty(device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -1,9 +1,13 @@
-"""IR-Net face-embedding backbone (``prpe_tpu/nn/irnet.py``), NCHW inside.
+"""IR-Net face-embedding backbones (``prpe_tpu/nn/irnet.py``), NCHW inside.
 
 ``IRNet`` takes NHWC crops and returns ``(embedding, norm)``: the
-L2-normalised 512-d embedding and the fp32 pre-normalisation norm. The
-output linear reads the NCHW flatten order (c, h, w); the weight bridge
-permutes the JAX model's (h, w, c) rows to match.
+L2-normalised embedding and the fp32 pre-normalisation norm. Depths 18 to
+100 stack ``BasicBlockIR``, 152 and 200 ``BottleneckIR`` (2048 output
+channels); ``mode="ir_se"`` adds a squeeze-excitation block to each unit.
+``input_channels`` is 3 for face crops and 64 in the combined model, whose
+adapter feeds the face branch. The output linear reads the NCHW flatten
+order (c, h, w); the weight bridge permutes the JAX model's (h, w, c) rows
+to match.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from prpe_tpu_torch.nn.common import BatchNorm, Conv2d, Linear, PReLU
@@ -23,11 +28,29 @@ _BLOCKS = {
     34: ((64, 3), (128, 4), (256, 6), (512, 3)),
     50: ((64, 3), (128, 4), (256, 14), (512, 3)),
     100: ((64, 3), (128, 13), (256, 30), (512, 3)),
+    152: ((256, 3), (512, 8), (1024, 36), (2048, 3)),
+    200: ((256, 3), (512, 24), (1024, 36), (2048, 3)),
 }
 
 
-class BasicBlockIR(nn.Module):
-    def __init__(self, cin: int, depth: int, stride: int):
+class SEModule(nn.Module):
+    """Squeeze-excitation: x * sigmoid(fc2(relu(fc1(mean_hw(x)))))."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc1 = Conv2d(channels, channels // reduction, 1, bias=False)
+        self.fc2 = Conv2d(channels // reduction, channels, 1, bias=False)
+
+    def forward(self, x):
+        s = self.fc2(F.relu(self.fc1(x.mean((2, 3), keepdim=True))))
+        return x * torch.sigmoid(s)
+
+
+class _IRUnit(nn.Module):
+    """The shortcut shared by both unit kinds: a strided subsample when the
+    width is kept, else a strided 1x1 conv + BatchNorm."""
+
+    def __init__(self, cin: int, depth: int, stride: int, use_se: bool):
         super().__init__()
         self.stride = stride
         if cin != depth:
@@ -35,6 +58,23 @@ class BasicBlockIR(nn.Module):
             self.shortcut_bn = BatchNorm(depth, _BN_EPS)
         else:
             self.shortcut_conv = None
+        self.se = SEModule(depth) if use_se else None
+
+    def shortcut(self, x):
+        if self.shortcut_conv is None:
+            # MaxPool2d(1, stride) == strided subsample
+            return x[:, :, ::self.stride, ::self.stride]
+        return self.shortcut_bn(self.shortcut_conv(x))
+
+    def finish(self, r, x):
+        if self.se is not None:
+            r = self.se(r)
+        return r + self.shortcut(x)
+
+
+class BasicBlockIR(_IRUnit):
+    def __init__(self, cin: int, depth: int, stride: int, use_se: bool = False):
+        super().__init__(cin, depth, stride, use_se)
         self.bn0 = BatchNorm(cin, _BN_EPS)
         self.conv1 = Conv2d(cin, depth, 3, 1, 1, bias=False)
         self.bn1 = BatchNorm(depth, _BN_EPS)
@@ -43,31 +83,53 @@ class BasicBlockIR(nn.Module):
         self.bn2 = BatchNorm(depth, _BN_EPS)
 
     def forward(self, x):
-        if self.shortcut_conv is None:
-            # MaxPool2d(1, stride) == strided subsample
-            shortcut = x[:, :, ::self.stride, ::self.stride]
-        else:
-            shortcut = self.shortcut_bn(self.shortcut_conv(x))
         r = self.conv1(self.bn0(x))
         r = self.conv2(self.prelu(self.bn1(r)))
-        return self.bn2(r) + shortcut
+        return self.finish(self.bn2(r), x)
+
+
+class BottleneckIR(_IRUnit):
+    """1x1 -> 3x3 -> strided 1x1 at a quarter of the output width."""
+
+    def __init__(self, cin: int, depth: int, stride: int, use_se: bool = False):
+        super().__init__(cin, depth, stride, use_se)
+        mid = depth // 4
+        self.bn0 = BatchNorm(cin, _BN_EPS)
+        self.conv1 = Conv2d(cin, mid, 1, bias=False)
+        self.bn1 = BatchNorm(mid, _BN_EPS)
+        self.prelu1 = PReLU(mid)
+        self.conv2 = Conv2d(mid, mid, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm(mid, _BN_EPS)
+        self.prelu2 = PReLU(mid)
+        self.conv3 = Conv2d(mid, depth, 1, stride, bias=False)
+        self.bn3 = BatchNorm(depth, _BN_EPS)
+
+    def forward(self, x):
+        r = self.prelu1(self.bn1(self.conv1(self.bn0(x))))
+        r = self.prelu2(self.bn2(self.conv2(r)))
+        return self.finish(self.bn3(self.conv3(r)), x)
 
 
 class IRNet(nn.Module):
-    """IR backbone -> (embedding (B, 512), norm (B, 1) fp32)."""
+    """IR / IR-SE backbone -> (embedding (B, E), norm (B, 1) fp32)."""
 
     def __init__(self, num_layers: int = 50, input_size: int = 112,
-                 embedding_size: int = 512, dtype: torch.dtype = torch.float32):
+                 embedding_size: int = 512, dtype: torch.dtype = torch.float32,
+                 mode: str = "ir", input_channels: int = 3):
         super().__init__()
+        if mode not in ("ir", "ir_se"):
+            raise ValueError(f"IRNet mode {mode!r} is not 'ir' or 'ir_se'")
         self.dtype = dtype
-        self.input_conv = Conv2d(3, 64, 3, 1, 1, bias=False)
+        self.num_layers, self.mode = num_layers, mode
+        self.input_conv = Conv2d(input_channels, 64, 3, 1, 1, bias=False)
         self.input_bn = BatchNorm(64, _BN_EPS)
         self.input_prelu = PReLU(64)
+        block = BasicBlockIR if num_layers <= 100 else BottleneckIR
         cin = 64
         blocks = []
         for depth, num_units in _BLOCKS[num_layers]:
             for u in range(num_units):
-                blocks.append(BasicBlockIR(cin, depth, 2 if u == 0 else 1))
+                blocks.append(block(cin, depth, 2 if u == 0 else 1, mode == "ir_se"))
                 cin = depth
         self.n_blocks = len(blocks)
         for i, blk in enumerate(blocks):
@@ -86,3 +148,12 @@ class IRNet(nn.Module):
         x = self.output_bn1d(self.output_linear(x))
         norm = torch.linalg.vector_norm(x.float(), dim=1, keepdim=True).clamp(min=1e-12)
         return x / norm.to(x.dtype), norm
+
+
+def build_irnet(name: str = "ir_50", **kw) -> IRNet:
+    """``ir_<depth>`` / ``ir_se_<depth>`` -> IRNet (``ir_101`` is depth 100)."""
+    parts = name.split("_")
+    num_layers = int(parts[-1])
+    if num_layers == 101:
+        num_layers = 100
+    return IRNet(num_layers=num_layers, mode="ir_se" if "se" in parts else "ir", **kw)

@@ -1,8 +1,10 @@
-"""ViTPose with the simple decoder (``prpe_tpu/nn/vit.py``).
+"""ViTPose (``prpe_tpu/nn/vit.py``).
 
 ViT-B/16 over 256x192 crops: patch-embed conv (k = s = 16, padding 2), one
-folded (P, C) positional table, pre-LN blocks, then ReLU -> bilinear x4 ->
-3x3 conv. ``ViTPose`` takes NHWC crops and returns heatmaps (B, K, H, W).
+folded (P, C) positional table, pre-LN blocks, then the simple decoder
+(ReLU -> bilinear x4 -> 3x3 conv) or the classic one (two transposed convs
+as flax computes them, then a 1x1 conv). ``ViTPose`` takes NHWC crops and
+returns heatmaps (B, K, H, W).
 
 The attention of every block follows ``PRPE_ATTN_MODE``, read at forward
 time as the JAX package reads it at trace time (:func:`attn_mode`):
@@ -27,7 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from prpe_tpu_torch.nn.common import Conv2d, LayerNorm, Linear, bilinear_resize, fast_gelu
+from prpe_tpu_torch.nn.common import (
+    BatchNorm, Conv2d, LayerNorm, Linear, bilinear_resize, fast_gelu,
+)
 from prpe_tpu_torch.ops.kernels.attention import mhsa_bhtd, mhsa_packed
 from prpe_tpu_torch.ops.kernels.ln_mhsa import fused_ln_mhsa
 
@@ -158,16 +162,58 @@ class SimpleDecoder(nn.Module):
         return self.conv(x)
 
 
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``ConvTranspose(features, (k, k), strides=(s, s), padding=[(p, p),
+    (p, p)])``: ``lax.conv_transpose`` with explicit padding and an unflipped
+    kernel, i.e. a stride-1 convolution over the input dilated by ``s``
+    with ``p`` on each side (output ``s * (n - 1) + 2p - k + 2``).
+
+    The same map is ``F.conv_transpose2d`` with padding ``k - 1 - p`` and
+    the weight spatially flipped with input and output swapped; the weight
+    here is held in that (in, out, k, k) layout (the bridge flips the flax
+    kernel) and cast to the input dtype, as ``Conv2d`` does.
+    """
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, padding: int):
+        super().__init__(cin, cout, kernel, stride, kernel - 1 - padding, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
+
+
+class ClassicDecoder(nn.Module):
+    """2x (deconv 4x4 / 2 + BatchNorm + ReLU) -> 1x1 conv: (h, w) features
+    -> (4h - 6, 4w - 6) heatmaps (16x12 -> 30x22 -> 58x42)."""
+
+    def __init__(self, hidden: int, num_keypoints: int = 17):
+        super().__init__()
+        self.deconv0 = ConvTranspose(hidden, 256, 4, 2, 1)
+        self.bn0 = BatchNorm(256, 1e-5)
+        self.deconv1 = ConvTranspose(256, 256, 4, 2, 1)
+        self.bn1 = BatchNorm(256, 1e-5)
+        self.conv = Conv2d(256, num_keypoints, 1)
+
+    def forward(self, x):
+        x = F.relu(self.bn0(self.deconv0(x)))
+        x = F.relu(self.bn1(self.deconv1(x)))
+        return self.conv(x)
+
+
 class ViTPose(nn.Module):
-    """Backbone + simple decoder: NHWC crops -> heatmaps (B, K, H, W)."""
+    """Backbone + decoder (``"simple"`` or ``"classic"``): NHWC crops ->
+    heatmaps (B, K, H, W)."""
 
     def __init__(self, image_size: Tuple[int, int] = (256, 192), num_keypoints: int = 17,
                  hidden: int = 768, layers: int = 12, heads: int = 12, mlp_ratio: int = 4,
-                 patch_size: int = 16, scale_factor: int = 4, dtype: torch.dtype = torch.float32):
+                 patch_size: int = 16, scale_factor: int = 4, dtype: torch.dtype = torch.float32,
+                 decoder: str = "simple"):
         super().__init__()
         self.dtype = dtype
         self.backbone = ViTPoseBackbone(image_size, patch_size, hidden, layers, heads, mlp_ratio)
-        self.head = SimpleDecoder(hidden, num_keypoints, scale_factor)
+        if decoder == "simple":
+            self.head = SimpleDecoder(hidden, num_keypoints, scale_factor)
+        else:  # as the JAX package: anything but "simple" is the classic one
+            self.head = ClassicDecoder(hidden, num_keypoints)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)

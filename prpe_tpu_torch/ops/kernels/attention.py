@@ -9,7 +9,13 @@ plain versions, over two layouts.
   ``_mhsa_kernel`` and ``_mhsa_kernel_bh``): one function on one layout,
   which one CUDA kernel serves (see ``csrc/mhsa.cu``).
 
-CPU tensors take the plain versions; CUDA tensors launch the kernel or raise.
+Each launch is the custom op ``prpe::mhsa_packed`` / ``prpe::mhsa_bhtd``
+(a fake implementation gives its output's shape), so ``torch.export``
+keeps the kernel as one node of the exported graph. The op's CPU
+implementation is the plain version; its CUDA implementation launches the
+kernel. The wrappers check shapes, dtypes and devices before the op, and
+refuse a tensor that is on neither: CPU tensors take the plain versions,
+CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -41,8 +47,8 @@ def mhsa_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return mhsa_bhtd_plain(split(q), split(k), split(v)).transpose(1, 2).reshape(b, t, c)
 
 
-def _launch(name: str, layout: str, q, k, v, b: int, t: int, heads: int, d: int) -> torch.Tensor:
-    """Check q/k/v for the kernel and launch ``prpe_mhsa_<layout>_<dtype>``."""
+def _check(name: str, q, k, v, t: int, d: int) -> None:
+    """The kernel's conditions on q/k/v that a fake tensor can show too."""
     if q.device.type != "cuda" or not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q/k/v on {q.device}, {k.device}, {v.device}")
     if q.dtype not in _SUFFIX or not (q.dtype == k.dtype == v.dtype):
@@ -53,6 +59,10 @@ def _launch(name: str, layout: str, q, k, v, b: int, t: int, heads: int, d: int)
         raise ValueError(f"{name}: T = {t} > {MAX_T}")
     if d not in (16, 32, 64, 128):
         raise ValueError(f"{name}: head dim {d} not in (16, 32, 64, 128)")
+
+
+def _launch(name: str, layout: str, q, k, v, b: int, t: int, heads: int, d: int) -> torch.Tensor:
+    """Launch ``prpe_mhsa_<layout>_<dtype>`` on checked q/k/v."""
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must start on 16-byte boundaries")
     o = torch.empty_like(q)
@@ -68,25 +78,56 @@ def _launch(name: str, layout: str, q, k, v, b: int, t: int, heads: int, d: int)
     return o
 
 
+@torch.library.custom_op("prpe::mhsa_packed", mutates_args=(), device_types="cpu")
+def _mhsa_packed_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    return mhsa_packed_plain(q, k, v, heads)
+
+
+@_mhsa_packed_op.register_kernel("cuda")
+def _(q, k, v, heads):
+    b, t, c = q.shape
+    return _launch("mhsa", "packed", q, k, v, b, t, heads, c // heads)
+
+
+@torch.library.custom_op("prpe::mhsa_bhtd", mutates_args=(), device_types="cpu")
+def _mhsa_bhtd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return mhsa_bhtd_plain(q, k, v)
+
+
+@_mhsa_bhtd_op.register_kernel("cuda")
+def _(q, k, v):
+    b, h, t, d = q.shape
+    return _launch("mhsa_bhtd", "bhtd", q, k, v, b, t, h, d)
+
+
+@_mhsa_packed_op.register_fake
+def _(q, k, v, heads):
+    return torch.empty_like(q)
+
+
+@_mhsa_bhtd_op.register_fake
+def _(q, k, v):
+    return torch.empty_like(q)
+
+
 def mhsa_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
     """softmax(Q K^T d^-1/2) V over (B, T, H*D) tensors, per head: the CUDA
     kernel for CUDA tensors, the plain version for CPU tensors."""
-    if q.device.type == "cpu":
-        return mhsa_packed_plain(q, k, v, heads)
-    if q.dim() != 3 or not (q.shape == k.shape == v.shape):
-        raise ValueError(f"mhsa_packed: shapes {q.shape}, {k.shape}, {v.shape}")
-    b, t, c = q.shape
-    if heads <= 0 or c % heads:
-        raise ValueError(f"mhsa_packed: C = {c} is not a multiple of heads = {heads}")
-    return _launch("mhsa", "packed", q, k, v, b, t, heads, c // heads)
+    if q.device.type != "cpu":
+        if q.dim() != 3 or not (q.shape == k.shape == v.shape):
+            raise ValueError(f"mhsa_packed: shapes {q.shape}, {k.shape}, {v.shape}")
+        b, t, c = q.shape
+        if heads <= 0 or c % heads:
+            raise ValueError(f"mhsa_packed: C = {c} is not a multiple of heads = {heads}")
+        _check("mhsa_packed", q, k, v, t, c // heads)
+    return _mhsa_packed_op(q, k, v, heads)
 
 
 def mhsa_bhtd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(Q K^T d^-1/2) V over (B, H, T, D) tensors: the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
-    if q.device.type == "cpu":
-        return mhsa_bhtd_plain(q, k, v)
-    if q.dim() != 4 or not (q.shape == k.shape == v.shape):
-        raise ValueError(f"mhsa_bhtd: shapes {q.shape}, {k.shape}, {v.shape}")
-    b, h, t, d = q.shape
-    return _launch("mhsa_bhtd", "bhtd", q, k, v, b, t, h, d)
+    if q.device.type != "cpu":
+        if q.dim() != 4 or not (q.shape == k.shape == v.shape):
+            raise ValueError(f"mhsa_bhtd: shapes {q.shape}, {k.shape}, {v.shape}")
+        _check("mhsa_bhtd", q, k, v, q.shape[2], q.shape[3])
+    return _mhsa_bhtd_op(q, k, v)

@@ -6,7 +6,9 @@ Counterpart of ``prpe_tpu/ops/pallas/attention_kernel.py::fused_ln_mhsa``
 (B, T, C). The weights are the port's ``Linear`` weights, (out, in); as in
 the JAX package they are cast to ``x.dtype`` here, outside the kernel, while
 the LayerNorm parameters and the biases stay fp32. CPU tensors take the
-plain versions; CUDA tensors launch the kernel or raise.
+plain versions; CUDA tensors launch the kernel or raise. The half-block's
+launch is the custom op ``prpe::ln_mhsa``, so ``torch.export`` keeps it as
+one node.
 
 :func:`layernorm` and :func:`linear` run the half-block's LayerNorm and its
 GEMM (bias, optional residual) as launches of their own, so that each stage
@@ -153,31 +155,17 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def fused_ln_mhsa(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
-                  eps: float = 1e-12) -> torch.Tensor:
-    """``x + proj(MHSA(qkv(LN(x))))``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Inference only (no gradient)."""
-    args = (ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)
-    if x.device.type == "cpu":
-        return ln_mhsa_plain(x, *args, heads=heads, eps=eps)
-    _check_cuda("fused_ln_mhsa", x, args, tuple(_SYMBOL))
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"fused_ln_mhsa: x must be a contiguous (B, T, C) tensor, got {x.shape}")
+@torch.library.custom_op("prpe::ln_mhsa", mutates_args=(), device_types="cpu")
+def _ln_mhsa_op(x: torch.Tensor, ln_w: torch.Tensor, ln_b: torch.Tensor, wq: torch.Tensor,
+                bq: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor, wv: torch.Tensor,
+                bv: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor, heads: int,
+                eps: float) -> torch.Tensor:
+    return ln_mhsa_plain(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads=heads, eps=eps)
+
+
+@_ln_mhsa_op.register_kernel("cuda")
+def _(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads, eps):
     b, t, c = x.shape
-    for name, a in zip(("ln_w", "ln_b", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"), args):
-        want = (c, c) if name.startswith("w") else (c,)
-        if tuple(a.shape) != want:
-            raise ValueError(f"fused_ln_mhsa: {name} has shape {tuple(a.shape)}, expected {want}")
-    if heads <= 0 or c % heads:
-        raise ValueError(f"fused_ln_mhsa: C = {c} is not a multiple of heads = {heads}")
-    d = c // heads
-    if d not in (16, 32, 64, 128):
-        raise ValueError(f"fused_ln_mhsa: head dim {d} not in (16, 32, 64, 128)")
-    if t > MAX_T:
-        raise ValueError(f"fused_ln_mhsa: T = {t} > {MAX_T}")
-    _check_row_width("fused_ln_mhsa", x, c)
-    wq, wk, wv, wo = (w.to(x.dtype).contiguous() for w in (wq, wk, wv, wo))
-    ln_w, ln_b, bq, bk, bv, bo = (p.float().contiguous() for p in (ln_w, ln_b, bq, bk, bv, bo))
     ptrs = (x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)
     _check_aligned("fused_ln_mhsa", ptrs)
     out = torch.empty_like(x)
@@ -186,7 +174,42 @@ def fused_ln_mhsa(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
     ws = torch.empty(4 * b * t * c, dtype=x.dtype, device=x.device)
     err = _call(x, getattr(_build.load("ln_mhsa"), _SYMBOL[x.dtype]),
                 *(p.data_ptr() for p in ptrs), out.data_ptr(), ws.data_ptr(),
-                b, t, c, heads, float(eps), float(d ** -0.5))
+                b, t, c, heads, float(eps), float((c // heads) ** -0.5))
     _build.check(err, "fused_ln_mhsa launch")
     _build.launches["ln_mhsa"] += 1
     return out
+
+
+@_ln_mhsa_op.register_fake
+def _(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads, eps):
+    return torch.empty_like(x)
+
+
+def fused_ln_mhsa(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                  eps: float = 1e-12) -> torch.Tensor:
+    """``x + proj(MHSA(qkv(LN(x))))``: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Inference only (no gradient). The launch
+    is the custom op ``prpe::ln_mhsa`` (see ``attention.py``), whose CPU
+    implementation is the plain version."""
+    args = (ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)
+    if x.device.type != "cpu":
+        _check_cuda("fused_ln_mhsa", x, args, tuple(_SYMBOL))
+        if x.dim() != 3 or not x.is_contiguous():
+            raise ValueError(
+                f"fused_ln_mhsa: x must be a contiguous (B, T, C) tensor, got {x.shape}")
+        b, t, c = x.shape
+        for name, a in zip(("ln_w", "ln_b", "wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"), args):
+            want = (c, c) if name.startswith("w") else (c,)
+            if tuple(a.shape) != want:
+                raise ValueError(
+                    f"fused_ln_mhsa: {name} has shape {tuple(a.shape)}, expected {want}")
+        if heads <= 0 or c % heads:
+            raise ValueError(f"fused_ln_mhsa: C = {c} is not a multiple of heads = {heads}")
+        if c // heads not in (16, 32, 64, 128):
+            raise ValueError(f"fused_ln_mhsa: head dim {c // heads} not in (16, 32, 64, 128)")
+        if t > MAX_T:
+            raise ValueError(f"fused_ln_mhsa: T = {t} > {MAX_T}")
+        _check_row_width("fused_ln_mhsa", x, c)
+        wq, wk, wv, wo = (w.to(x.dtype).contiguous() for w in (wq, wk, wv, wo))
+        ln_w, ln_b, bq, bk, bv, bo = (p.float().contiguous() for p in (ln_w, ln_b, bq, bk, bv, bo))
+    return _ln_mhsa_op(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads, float(eps))

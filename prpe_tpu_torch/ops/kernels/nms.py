@@ -2,7 +2,8 @@
 
 Counterpart of ``prpe_tpu/ops/pallas/nms_kernel.py::pallas_greedy_nms``.
 CPU tensors take :func:`nms_keep_plain`; CUDA tensors launch the kernel or
-raise.
+raise. The launch is the custom op ``prpe::nms_keep`` (as in
+``attention.py``), so an exported program holds the kernel as a node.
 """
 
 from __future__ import annotations
@@ -46,24 +47,16 @@ def nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: floa
     return greedy_scan(iou > iou_threshold, valid.bool())
 
 
-def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Greedy-NMS keep mask (B, K) bool: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    if boxes.device.type == "cpu":
-        return nms_keep_plain(boxes, valid, iou_threshold)
-    if boxes.device.type != "cuda" or valid.device != boxes.device:
-        raise ValueError(f"nms_keep: boxes on {boxes.device}, valid on {valid.device}")
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
-        raise ValueError(f"nms_keep: boxes {tuple(boxes.shape)}, valid {tuple(valid.shape)}")
+@torch.library.custom_op("prpe::nms_keep", mutates_args=(), device_types="cpu")
+def _nms_keep_op(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    return nms_keep_plain(boxes, valid, iou_threshold)
+
+
+@_nms_keep_op.register_kernel("cuda")
+def _(boxes, valid, iou_threshold):
     b, k, _ = boxes.shape
-    if not 0 < k <= MAX_K:
-        raise ValueError(f"nms_keep: K = {k} outside (0, {MAX_K}]")
-    if b == 0:
-        return torch.zeros(0, k, dtype=torch.bool, device=boxes.device)
-    boxes = boxes.to(torch.float32).contiguous()
     if boxes.data_ptr() % 16:  # the kernel reads each box as one 16-byte vector
         boxes = boxes.clone()
-    valid = valid.to(torch.bool).contiguous()
     keep = torch.empty(b, k, dtype=torch.bool, device=boxes.device)
     lib = _build.load("nms")
     with torch.cuda.device(boxes.device):
@@ -73,3 +66,27 @@ def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> 
     _build.check(err, "nms_keep launch")
     _build.launches["nms"] += 1
     return keep
+
+
+@_nms_keep_op.register_fake
+def _(boxes, valid, iou_threshold):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
+def nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy-NMS keep mask (B, K) bool: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. The launch is the custom op
+    ``prpe::nms_keep``, whose CPU implementation is the plain version."""
+    if boxes.device.type != "cpu":
+        if boxes.device.type != "cuda" or valid.device != boxes.device:
+            raise ValueError(f"nms_keep: boxes on {boxes.device}, valid on {valid.device}")
+        if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
+            raise ValueError(f"nms_keep: boxes {tuple(boxes.shape)}, valid {tuple(valid.shape)}")
+        b, k, _ = boxes.shape
+        if not 0 < k <= MAX_K:
+            raise ValueError(f"nms_keep: K = {k} outside (0, {MAX_K}]")
+        if b == 0:
+            return torch.zeros(0, k, dtype=torch.bool, device=boxes.device)
+        boxes = boxes.to(torch.float32).contiguous()
+        valid = valid.to(torch.bool).contiguous()
+    return _nms_keep_op(boxes, valid, float(iou_threshold))

@@ -80,7 +80,8 @@ def to_nhwc(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
 
 
-@pytest.mark.parametrize("name", ["DetectionConfig", "PoseConfig", "CascadeConfig", "AdaFaceConfig"])
+@pytest.mark.parametrize("name", ["DetectionConfig", "PoseConfig", "CascadeConfig", "AdaFaceConfig",
+                                  "CombinedModelConfig"])
 def test_config_fields_match(name):
     want = dataclasses.asdict(getattr(jax_config, name)())
     got = dataclasses.asdict(getattr(port_config, name)())

@@ -29,13 +29,29 @@ run = build_cascade_runner(model, CascadeConfig(max_persons=2, max_faces=2, conf
                            pose_capacity=2, device="cpu")
 res = run(torch.rand(1, 64, 64, 3), torch.zeros(2, 512))
 assert res.pose_keypoints.shape == (2, 17, 2) and bool(torch.isfinite(res.pose_keypoints).all())
+for m in {new_modules!r}:
+    assert m in mods, m
+from prpe_tpu_torch.core.config import AdaFaceConfig, CombinedModelConfig, TASKS
+from prpe_tpu_torch.models.combined import CombinedModel
+cfg = CombinedModelConfig(backbone_stages=(1, 1, 1, 1), detection=DetectionConfig(adapter_size=(32, 32)),
+                          face=AdaFaceConfig(arch="ir_18", num_classes=4, input_size=(32, 32)), pose=pose)
+combined = CombinedModel(cfg, device="cpu")
+with torch.no_grad():
+    for task in TASKS:
+        combined(torch.rand(1, 64, 64, 3), task)
 print("imported", len(mods), "modules")
 """
+# the modules of the combined model and the serving CLIs
+NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
+               "prpe_tpu_torch.nn.adapters", "prpe_tpu_torch.ops.margin",
+               "prpe_tpu_torch.data.image", "prpe_tpu_torch.cli.infer",
+               "prpe_tpu_torch.cli.export", "prpe_tpu_torch.cli.build_model")
 
 
 def test_port_imports_and_runs_without_jax():
     proc = subprocess.run(
-        [sys.executable, "-c", _GUARDED_RUN.format(forbidden=FORBIDDEN)],
+        [sys.executable, "-c", _GUARDED_RUN.format(forbidden=FORBIDDEN,
+                                                   new_modules=NEW_MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "imported" in proc.stdout
@@ -69,6 +85,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
     model = CascadeModel(DetectionConfig(), pose, irnet_layers=18, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_cascade_runner(model)
+    from prpe_tpu_torch.cli import build_model, export, infer
+    from prpe_tpu_torch.models.combined import CombinedModel
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CombinedModel()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        infer.main(["frame.png", "--preset", "tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.main(["--model", "vitpose", "--preset", "tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model.main(["--component-dir", "none"])
 
 
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
