@@ -54,7 +54,27 @@ exit on the first fault:
 9. export: ``torch.export`` of ViTPose-B and of the combined model's pose
    path at batch 2 (``cli/export.py``): the program holds the node
    ``prpe::mhsa_packed``, launches K2 when run, and gives the eager
-   outputs within 1e-5 of their largest magnitude.
+   outputs within 1e-5 of their largest magnitude;
+10. mhsa_grad: forward plus backward of K2 and K3 at (32, 192, 12 x 64),
+    bf16 and fp32: the kernel's forward with the registered torch backward
+    against the plain forward with the same backward (dq, dk, dv within
+    2e-2 in bf16, 1e-4 in fp32), timed beside SDPA's forward plus backward;
+11. train_reference: one SGD step per task of the tiny fp32 combined model
+    on the card against the CPU from the same weights and batch (loss and
+    metrics within 1e-4, parameter changes and BatchNorm statistics within
+    the bounds ``phase_train_reference`` states); K2 once per ViT block in
+    the pose step, K1 once in each detection eval step;
+12. train: the full-width combined model in bf16 with fp32 parameters,
+    batch 32 at 640^2, branch scope, Adam at lr 1e-3 on synthetic batches
+    (the JAX package's ``bench_train.py`` geometry): per task ms per step,
+    images/s, peak memory, launches per step (K2 12 in a pose step), the
+    losses, the trunk unmoved, one eval step (K1 once in a detection one),
+    and a kernel profile of a pose and a person-detection step;
+13. train_cli: ``cli/train.py::main`` on the card: the tiny preset for an
+    epoch with checkpoints and a resume from ``latest`` for a second, then
+    the full preset at batch 4 for an epoch without a combined checkpoint,
+    its launches counted (K2 12 per pose step, K1 once per detection
+    validation batch).
 
 Every phase prints one JSON line with the card's name and power limit. The
 last two lines are the ``kernels`` summary and ``{"ok": true, ...}``. The
@@ -868,6 +888,371 @@ def phase_export(device, batch: int = 2) -> dict:
     return rows
 
 
+# --------------------------------------------------------------- training ---
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def phase_mhsa_grad(gen, device, dtype, layout: str, b: int = 32, t: int = 192, h: int = 12,
+                    d: int = 64) -> dict:
+    """Forward plus backward of one attention op: the kernel's forward with
+    the registered backward (``attention.py::mhsa_backward``, the JAX
+    package's ``_bwd`` in torch ops) against the plain forward with the
+    same backward, on the same tensors; ``library_ms`` is SDPA's forward
+    plus backward. The bound counts the forward's two products and the
+    backward's five (it recomputes the logits, as ``_bwd`` does)."""
+    import torch.nn.functional as F
+
+    from prpe_tpu_torch.ops.kernels import launches
+    from prpe_tpu_torch.ops.kernels import attention as attn
+
+    if layout == "packed":
+        name, counter, shape = "mhsa_packed", "mhsa", (b, t, h * d)
+        kernel = lambda q, k, v: attn.mhsa_packed(q, k, v, h)  # noqa: E731
+        plain = lambda q, k, v: attn.mhsa_packed_plain(q, k, v, h)  # noqa: E731
+        bthd = lambda x: x.view(b, t, h, d)  # noqa: E731
+        back = lambda x: x.reshape(b, t, h * d)  # noqa: E731
+        heads = lambda x: x.view(b, t, h, d).transpose(1, 2)  # noqa: E731
+    else:
+        name, counter, shape = "mhsa_bhtd", "mhsa_bhtd", (b, h, t, d)
+        kernel, plain = attn.mhsa_bhtd, attn.mhsa_bhtd_plain
+        bthd = lambda x: x.transpose(1, 2)  # noqa: E731
+        back = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+        heads = lambda x: x  # noqa: E731
+    q, k, v, g = (torch.randn(*shape, generator=gen, device=device).to(dtype) for _ in range(4))
+    ins = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def kernel_fwd_bwd():
+        out = kernel(*ins)
+        return out, torch.autograd.grad(out, ins, g)
+
+    def plain_fwd_bwd():
+        out = plain(q, k, v)
+        grads = attn.mhsa_backward(bthd(q), bthd(k), bthd(v), bthd(g))
+        return out, [back(x) for x in grads]
+
+    lib_ins = [heads(x).detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def library_fwd_bwd():
+        out = F.scaled_dot_product_attention(*lib_ins)
+        return torch.autograd.grad(out, lib_ins, heads(g))
+
+    before = launches[counter]
+    out, grads = kernel_fwd_bwd()
+    _sync(device)
+    if launches[counter] != before + 1:
+        fail(f"{name} forward + backward launched {launches[counter] - before} kernels, not 1")
+    want_out, want = plain_fwd_bwd()
+    errs = {"out": float((out.detach().float() - want_out.float()).abs().max())}
+    for key, got, w in zip(("dq", "dk", "dv"), grads, want):
+        errs[key] = float((got.float() - w.float()).abs().max())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    if not max(errs.values()) <= tol or not all(bool(torch.isfinite(x).all()) for x in grads):
+        fail(f"{name} grad {dtype}: max abs errs {errs} > {tol}")
+    ms = time_ms(kernel_fwd_bwd, runs=10)
+    plain_ms = time_ms(plain_fwd_bwd, runs=10)
+    library_ms = time_ms(library_fwd_bwd, runs=10)
+    bnd, by = bound_ms(11 * q.numel() * q.element_size(), 14 * b * h * t * t * d,
+                       PEAK_FLOPS[dtype])
+    row = dict(name=f"{name}_grad", dtype=str(dtype).replace("torch.", ""), B=b, T=t, H=h, D=d,
+               max_abs_err=max(errs.values()), max_abs_err_by_output=errs, ms=ms,
+               plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=library_ms,
+               host_us=host_us(kernel_fwd_bwd, calls=5, rounds=3))
+    emit("mhsa_grad", **row)
+    return row
+
+
+TRAIN_OPTIM = dict(optimizer="sgd", learning_rate=0.1, weight_decay=5e-4)
+
+
+def train_batches(cfg, batch: int, size: int, seed: int = 0, num_classes=None) -> dict:
+    """One synthetic batch per task (``data/synthetic.py``, numpy seed)."""
+    import numpy as np
+
+    from prpe_tpu_torch.data import synthetic
+
+    rng = np.random.default_rng(seed)
+    return {"person_detection": synthetic.detection_batch(rng, batch, size, cfg.detection.max_gt),
+            "face_detection": synthetic.detection_batch(rng, batch, size, cfg.detection.max_gt),
+            "face_recognition": synthetic.face_batch(rng, batch, size,
+                                                     num_classes or cfg.face.num_classes),
+            "pose_estimation": synthetic.pose_batch(rng, batch, size, cfg.pose.max_instances)}
+
+
+def one_train_step(model, task: str, cfg, optim_kw: dict, batch: dict):
+    """A fresh optimizer for ``task`` (branch scope) and one step: -> the
+    step's metrics as floats."""
+    from prpe_tpu_torch.core.config import OptimConfig
+    from prpe_tpu_torch.train.optim import build_optimizer
+    from prpe_tpu_torch.train.state import create_train_state
+    from prpe_tpu_torch.train.steps import make_train_step, trainable_params
+
+    tx = build_optimizer(OptimConfig(**optim_kw))
+    state = create_train_state(model, {task: tx}, {task: trainable_params(model, task)})
+    step = make_train_step(model, task, tx, cfg)
+    _, metrics = step(state, batch, torch.Generator(device=next(model.parameters()).device))
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def phase_train_reference(device) -> dict:
+    """One SGD step per task of the tiny fp32 combined model on the card
+    against the same step on the CPU, from the same weights and batch
+    (dropout off: the two devices draw different masks). Loss and metrics
+    within 1e-4 of their magnitude (at least 1), ``grad_norm`` within 5e-3;
+    each updated parameter's
+    change within 1e-1 of the largest CPU change of that tensor plus 1e-4 of
+    the task's largest (the tiny model's BatchNorms reduce over few
+    elements, so its fp32 gradients carry rounding of that size, as
+    ``tests/test_torch_train.py`` sets out); the running statistics within
+    1e-3. K2 launched once per ViT block in the pose step; K1 once in each
+    detection eval step. Returns the launch counts."""
+    from prpe_tpu_torch.core.config import TASKS
+    from prpe_tpu_torch.models.combined import CombinedModel
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.train.steps import make_eval_step, trainable_mask
+
+    cfg = tiny_combined_config()
+    batches = train_batches(cfg, 8, 64, seed=3)
+    rows, counts = {}, {}
+    for task in TASKS:
+        # the weights drawn once on the CPU: a generator draws differently
+        # on the card
+        models = {"cpu": CombinedModel(cfg, device="cpu", seed=2),
+                  "card": CombinedModel(cfg, device=device)}
+        models["card"].load_state_dict(models["cpu"].state_dict())
+        for m in models.values():
+            m.ada_face.dropout.rate = 0.0
+        start = {k: t.clone() for k, t in models["cpu"].state_dict().items()}
+        reset_launches()
+        got = one_train_step(models["card"], task, cfg, TRAIN_OPTIM, batches[task])
+        _sync(device)
+        counts[task] = {"train": {k: v for k, v in launches.items() if v}}
+        want = one_train_step(models["cpu"], task, cfg, TRAIN_OPTIM, batches[task])
+        want_counts = {"mhsa": cfg.pose.vit_layers} if task == "pose_estimation" else {}
+        if counts[task]["train"] != want_counts:
+            fail(f"train_reference: {task} step launched {counts[task]['train']}, "
+                 f"expected {want_counts}")
+        metric_err = max(abs(got[k] - w) / max(1.0, abs(w)) for k, w in want.items()
+                         if k != "grad_norm")
+        norm_err = abs(got["grad_norm"] - want["grad_norm"]) / max(1.0, abs(want["grad_norm"]))
+        if not (metric_err <= 1e-4 and norm_err <= 5e-3):
+            fail(f"train_reference: {task} metrics {got} against the CPU's {want}")
+        mask = trainable_mask(models["cpu"], task)
+        gsd = {k: t.cpu() for k, t in models["card"].state_dict().items()}
+        wsd = models["cpu"].state_dict()
+        task_scale = max(float((wsd[k] - start[k]).abs().max()) for k in mask if mask[k])
+        param_err = stat_err = 0.0
+        for k, w in wsd.items():
+            if k in mask and not mask[k]:
+                if not torch.equal(gsd[k], start[k]):
+                    fail(f"train_reference: {task} moved the frozen {k}")
+                continue
+            if k in mask:
+                scale = float((w - start[k]).abs().max())
+                e = float(((gsd[k] - start[k]) - (w - start[k])).abs().max())
+                bound = 1e-1 * scale + 1e-4 * task_scale
+                if not e <= bound:
+                    fail(f"train_reference: {task} {k} moved {e} off the CPU's change {scale}")
+                param_err = max(param_err, e / bound)
+            else:
+                e = float((gsd[k].float() - w.float()).abs().max()) / max(
+                    1.0, float(w.float().abs().max()))
+                if not e <= 1e-3:
+                    fail(f"train_reference: {task} statistic {k} off by {e}")
+                stat_err = max(stat_err, e)
+        reset_launches()
+        make_eval_step(models["card"], task, cfg)(batches[task])
+        _sync(device)
+        counts[task]["eval"] = {k: v for k, v in launches.items() if v}
+        want_eval = ({"nms": 1} if "detection" in task else
+                     {"mhsa": 2 * cfg.pose.vit_layers} if task == "pose_estimation" else {})
+        if counts[task]["eval"] != want_eval:
+            fail(f"train_reference: {task} eval step launched {counts[task]['eval']}, "
+                 f"expected {want_eval}")
+        rows[task] = dict(loss=got["loss"], loss_cpu=want["loss"], max_metric_rel_err=metric_err,
+                          grad_norm_rel_err=norm_err,
+                          max_param_change_share_of_bound=param_err, task_max_change=task_scale,
+                          max_stat_rel_err=stat_err, launches=counts[task])
+    emit("train_reference", batch=8, image_size=64, tasks=rows)
+    return counts
+
+
+def phase_train(device, cfg=None, dtype=torch.bfloat16, batch: int = 32, size: int = 640,
+                warmup: int = 2, steps: int = 5) -> dict:
+    """The ``bench_train.py`` geometry: ``CombinedModelConfig()`` at full
+    width, bf16 compute with fp32 parameters, ``batch`` images of
+    ``size``^2, branch scope, Adam at lr 1e-3 constant, one synthetic batch
+    per task (detection 16 boxes at most, face labels from 1000 classes,
+    pose 8 instances; numpy seed 0) already on the card. Per task:
+    ``warmup`` steps, then ``steps`` timed (CUDA events, the steps queued
+    back to back) with every launch counter at zero before them; finite
+    losses, the trunk unmoved, the peak memory; one eval step with its
+    launches; a kernel profile of one pose and one person-detection step.
+    A batch the card cannot hold is halved, and the row says so. Returns
+    the launches per train step and per eval step."""
+    import dataclasses
+
+    from prpe_tpu_torch.core.config import TASKS, CombinedModelConfig, OptimConfig
+    from prpe_tpu_torch.models.combined import CombinedModel
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.train.optim import build_optimizer
+    from prpe_tpu_torch.train.state import create_train_state
+    from prpe_tpu_torch.train.steps import (
+        make_eval_step, make_train_step, to_device, trainable_params,
+    )
+
+    cfg = cfg or dataclasses.replace(
+        CombinedModelConfig(), detection=dataclasses.replace(CombinedModelConfig().detection,
+                                                             max_gt=16))
+    t0 = time.perf_counter()
+    model = CombinedModel(cfg, dtype, device=device, seed=0)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    optim = OptimConfig(optimizer="adam", learning_rate=1e-3)
+    txs = {task: build_optimizer(optim) for task in TASKS}
+    state = create_train_state(model, txs, {t: trainable_params(model, t) for t in TASKS})
+    gen = torch.Generator(device=device).manual_seed(0)
+    trunk = {k: p.detach().clone() for k, p in model.named_parameters()
+             if k.startswith("backbone")}
+    per_step, per_eval, rows, profiles = {}, {}, {}, {}
+    host_batches = train_batches(cfg, batch, size, 0, min(1000, cfg.face.num_classes))
+    for task in TASKS:
+        step = make_train_step(model, task, txs[task], cfg)
+        b = batch
+        while True:
+            try:
+                data = to_device({k: v[:b] for k, v in host_batches[task].items()}, device)
+                if device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(device)
+                losses = []
+                for _ in range(warmup):
+                    state, m = step(state, data, gen)
+                    losses.append(m)
+                _sync(device)
+                break
+            except torch.cuda.OutOfMemoryError:
+                if b == 1:
+                    raise
+                data = None
+                torch.cuda.empty_cache()
+                b //= 2
+        reset_launches()
+        holder = {"state": state}
+
+        def one():
+            holder["state"], m = step(holder["state"], data, gen)
+            losses.append(m)
+
+        ms = time_ms(one, runs=steps, warmup=0)
+        _sync(device)
+        state = holder["state"]
+        counts = {k: v for k, v in launches.items() if v}
+        per_step[task] = {k: v / steps for k, v in counts.items()}
+        want = {"mhsa": float(cfg.pose.vit_layers)} if task == "pose_estimation" else {}
+        if per_step[task] != want:
+            fail(f"train: {task} launched {counts} in {steps} steps, expected {want} a step")
+        host = [{k: float(v) for k, v in m.items()} for m in losses]
+        if not all(v == v and abs(v) != float("inf") for m in host for v in m.values()):
+            fail(f"train: {task} has non-finite metrics {host[-1]}")
+        for k, p in model.named_parameters():
+            if k in trunk and not torch.equal(p, trunk[k]):
+                fail(f"train: the frozen trunk's {k} moved in {task}")
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
+        reset_launches()
+        metrics, _ = make_eval_step(model, task, cfg)(data)
+        _sync(device)
+        per_eval[task] = {k: v for k, v in launches.items() if v}
+        want_eval = ({"nms": 1} if "detection" in task else
+                     {"mhsa": 2 * cfg.pose.vit_layers} if task == "pose_estimation" else {})
+        if per_eval[task] != want_eval:
+            fail(f"train: {task} eval step launched {per_eval[task]}, expected {want_eval}")
+        rows[task] = dict(batch=b, batch_note=None if b == batch else f"batch {batch} did not fit",
+                          ms_per_step=ms, images_per_s=b * 1e3 / ms,
+                          peak_mem_gib=peak, launches_per_step=per_step[task],
+                          eval_launches=per_eval[task], losses=[m["loss"] for m in host],
+                          last_metrics=host[-1],
+                          eval_metrics={k: float(v) for k, v in metrics.items()})
+        if task in ("pose_estimation", "person_detection") and device.type == "cuda":
+            profiles[task] = profile_top(lambda: step(state, data, gen), top=16)
+        del data
+    emit("train", dtype=str(dtype).replace("torch.", ""), image_size=size, init_s=init_s,
+         optimizer="adam lr 1e-3 constant, branch scope", tasks=rows, profiles=profiles)
+    del model, state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"step": per_step, "eval": per_eval}
+
+
+def phase_train_cli(device, full_batch: int = 4,
+                    full=("--preset", "full", "--image-size", "640"), layers: int = 12) -> dict:
+    """``cli/train.py::main`` on the card, writing into a temporary
+    directory that is deleted afterwards: the tiny preset for 1 epoch with
+    its checkpoints, then ``--resume-checkpoint latest`` for a second; then
+    the full preset (fresh weights, no component files) at batch
+    ``full_batch`` for 1 epoch with ``--save-every 2`` (no combined
+    checkpoint; the face task's slim ``best_*`` is still written), with
+    every launch counter at zero before it. Returns that run's launches."""
+    import json as json_
+    import shutil
+    import tempfile
+
+    from prpe_tpu_torch.cli import train as cli
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    tmp = tempfile.mkdtemp(prefix="prpe_train_cli_")
+    try:
+        def args(name, *extra):
+            missing = os.path.join(tmp, "no_dataset")
+            return ["--device", str(device), "--person-data-dir", missing, "--face-data-dir",
+                    missing, "--face-rec-data-dir", missing, "--pose-data-dir", missing,
+                    "--component-dir", missing, "--checkpoint-dir", os.path.join(tmp, name, "ck"),
+                    "--log-dir", os.path.join(tmp, name, "log"), *extra]
+
+        tiny = ["--preset", "tiny", "--image-size", "64", "--batch-size", "4"]
+        t0 = time.perf_counter()
+        if cli.main(args("tiny", *tiny, "--epochs", "1")) != 0:
+            fail("train_cli: the tiny run did not return 0")
+        if cli.main(args("tiny", *tiny, "--epochs", "2", "--resume-checkpoint", "latest")) != 0:
+            fail("train_cli: the resumed tiny run did not return 0")
+        tiny_s = time.perf_counter() - t0
+        meta = json_.loads(open(os.path.join(tmp, "tiny", "ck", "meta.json")).read())
+        epochs = [(c["epoch"], c["last_task"]) for c in meta["checkpoints"]]
+        # the newest 3 (TrainConfig.keep_checkpoints) are all of epoch 1
+        if [e for e, _ in epochs] != [1, 1, 1] or epochs[-1][1] != "pose_estimation":
+            fail(f"train_cli: the resumed run wrote checkpoints {epochs}")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(args("full", *full, "--batch-size", str(full_batch), "--epochs", "1",
+                         "--save-every", "2")) != 0:
+            fail("train_cli: the full run did not return 0")
+        _sync(device)
+        full_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launches.items() if v}
+        # 8 synthetic train batches a task; 2 validation batches a detection
+        # task (K1 once each); pose has no validation loader
+        want = {"mhsa": 8 * layers, "nms": 2 * 2}
+        if counts != want:
+            fail(f"train_cli: the full run launched {counts}, expected {want}")
+        written = sorted(os.listdir(os.path.join(tmp, "full", "ck")))
+        history = {}
+        for task in ("person_detection", "face_detection", "face_recognition", "pose_estimation"):
+            with open(os.path.join(tmp, "full", "log", f"{task}_history.csv")) as f:
+                head, row = f.read().splitlines()[:2]
+            history[task] = dict(zip(head.split(","), (float(x) for x in row.split(","))))
+            if not all(v == v for v in history[task].values()):
+                fail(f"train_cli: {task} logged non-finite metrics {history[task]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_cli", tiny_two_runs_s=tiny_s, tiny_checkpoints=epochs, full_batch=full_batch,
+         full_run_s=full_s, full_launches=counts, full_written=written,
+         full_history={t: {k: h[k] for k in h if k in ("train/loss", "val/loss", "val_acc")}
+                       for t, h in history.items()})
+    return counts
+
+
 def report_build(logs) -> None:
     """Print each kernel's ``ptxas`` lines (entry, registers, spills, wgmma
     notes) and fail on a spill or a compiler error."""
@@ -955,6 +1340,11 @@ def main() -> int:
     phase_combined(device)
     phase_infer_cli(device)
     phase_export(device)
+    grad_rows = {(dt, layout): phase_mhsa_grad(gen, device, dt, layout)
+                 for dt in (torch.bfloat16, torch.float32) for layout in ("packed", "bhtd")}
+    phase_train_reference(device)
+    train_counts = phase_train(device)
+    cli_counts = phase_train_cli(device)
 
     src, pallas = "prpe_tpu_torch/csrc/", "prpe_tpu/ops/pallas/"
     row = lambda r: {k: r[k] for k in ROW_KEYS}  # noqa: E731
@@ -962,15 +1352,26 @@ def main() -> int:
     # kernel at B = 128 and in fp32 under suffixed keys
     attn_keys = lambda rows: {**row(rows[0]), **suffixed(rows[2], "_b128"),  # noqa: E731
                               **suffixed(rows[1], "_f32"), **suffixed(rows[3], "_b128_f32")}
+    # the training path: launches per train step and per eval step at full
+    # width, and over the full-preset train CLI run; the forward + backward
+    # of the attention ops (kernel forward, torch backward) under _fwd_bwd
+    bf, f32 = torch.bfloat16, torch.float32
+    grad_keys = lambda layout: {**suffixed(grad_rows[(bf, layout)], "_fwd_bwd"),  # noqa: E731
+                                **suffixed(grad_rows[(f32, layout)], "_fwd_bwd_f32")}
     kernels = [
         dict(name="nms_keep", route="cuda", source=src + "nms.cu",
              replaces=pallas + "nms_kernel.py:42", launches=counts["pallas_packed"]["nms"],
-             launches_f32=counts_f32["pallas_packed"]["nms"], **row(nms_rows[0]),
+             launches_f32=counts_f32["pallas_packed"]["nms"],
+             launches_detection_eval_step=train_counts["eval"]["person_detection"]["nms"],
+             launches_train_cli=cli_counts["nms"], **row(nms_rows[0]),
              **suffixed(nms_rows[1], "_k1024")),
         dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
              replaces=pallas + "attention_kernel.py:92",
              launches=counts["pallas_packed"]["mhsa"],
-             launches_f32=counts_f32["pallas_packed"]["mhsa"], **attn_keys(mhsa_rows)),
+             launches_f32=counts_f32["pallas_packed"]["mhsa"],
+             launches_pose_train_step=train_counts["step"]["pose_estimation"]["mhsa"],
+             launches_train_cli=cli_counts["mhsa"], **attn_keys(mhsa_rows),
+             **grad_keys("packed")),
     ]
     # one kernel serves the three (B, H, T, D) Pallas kernels; launches per
     # ViTPose-B forward under the mode that selects each
@@ -978,7 +1379,8 @@ def main() -> int:
                                 ("bh", "pallas_bh", 76)):
         kernels.append(dict(name=f"mhsa_bhtd[{variant}]", route="cuda", source=src + "mhsa.cu",
                             replaces=f"{pallas}attention_kernel.py:{line}", attn_mode=mode,
-                            launches=mode_counts[mode]["mhsa_bhtd"], **attn_keys(bhtd_rows)))
+                            launches=mode_counts[mode]["mhsa_bhtd"], **attn_keys(bhtd_rows),
+                            **grad_keys("bhtd")))
     kernels.append(dict(name="ln_mhsa", route="cuda", source=src + "ln_mhsa.cu",
                         replaces=pallas + "attention_kernel.py:115", attn_mode="pallas_lnfused",
                         launches=counts["pallas_lnfused"]["ln_mhsa"],

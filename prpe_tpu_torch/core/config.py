@@ -1,9 +1,10 @@
-"""Configuration dataclasses for the serving cascade and the combined model.
+"""Configuration dataclasses for the serving cascade, the combined model and
+its training.
 
 Own copies of ``prpe_tpu.core.config``'s detection, face, pose, combined
-model and cascade configs, with the same field names and defaults (the
-tests check each field against the JAX package). Frozen, so a config can
-key a cache.
+model, cascade, optimizer, data, task and train configs, with the same
+field names and defaults (the tests check each field against the JAX
+package). Frozen, so a config can key a cache.
 """
 
 from __future__ import annotations
@@ -96,6 +97,87 @@ class CombinedModelConfig:
     detection: DetectionConfig = field(default_factory=DetectionConfig)
     face: AdaFaceConfig = field(default_factory=AdaFaceConfig)
     pose: PoseConfig = field(default_factory=PoseConfig)
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    optimizer: str = "adam"  # adam / adamw / sgd
+    learning_rate: float = 1e-3
+    weight_decay: float = 5e-4
+    grad_clip_norm: float = 10.0
+    # schedule: constant / linear / cosine / onecycle
+    schedule: str = "constant"
+    warmup_steps: int = 0
+    total_steps: int = 10_000
+    min_lr: float = 1e-6
+    # gradient accumulation: the mean of this many gradients per update
+    accumulate: int = 1
+    # per-param-group lr multipliers keyed by top-level parameter name
+    # (exact match), e.g. (("vit_pose", 0.1),)
+    param_group_scales: Tuple[Tuple[str, float], ...] = ()
+    # EMA of the parameters, with an exponential warm-up ramp
+    ema_decay: float = 0.9999
+    ema_tau: float = 2000.0
+    use_ema: bool = False
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    data_dir: str = ""
+    batch_size: int = 32
+    num_workers: int = 4
+    max_train_samples: Optional[int] = 2500
+    max_val_samples: Optional[int] = 400
+    shuffle_seed: int = 42
+
+
+@dataclass(frozen=True)
+class TaskConfig:
+    """Per-task training config."""
+
+    name: str = "person_detection"
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    monitor: str = "val_loss"  # metric used for best-checkpoint selection
+    monitor_mode: str = "min"
+    # optional W&B project, one per task
+    wandb_project: Optional[str] = None
+    # which parameters this task's optimizer trains: "branch" (each task
+    # only its branch; the shared trunk is in no optimizer),
+    # "branch+backbone" or "all"
+    trainable: str = "branch"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Round-robin orchestration."""
+
+    total_epochs: int = 15
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    save_every_epochs: int = 1
+    keep_checkpoints: int = 3
+    log_every_steps: int = 50
+    bf16: bool = True
+    tasks: Tuple[TaskConfig, ...] = ()
+
+
+def default_task_configs() -> Tuple[TaskConfig, ...]:
+    """The four tasks with their monitors; pose trains with AdamW, a
+    per-step one-cycle schedule and the ViT at 0.1x lr (``total_steps`` and
+    ``warmup_steps`` are filled in by the caller)."""
+    return (
+        TaskConfig(name="person_detection", monitor="val/mAP50-95", monitor_mode="max"),
+        TaskConfig(name="face_detection", monitor="val/mAP50-95", monitor_mode="max"),
+        TaskConfig(name="face_recognition", monitor="val_acc", monitor_mode="max"),
+        TaskConfig(
+            name="pose_estimation", monitor="val_loss", monitor_mode="min",
+            optim=OptimConfig(
+                optimizer="adamw", weight_decay=5e-4, schedule="onecycle",
+                param_group_scales=(("vit_pose", 0.1),),
+            ),
+        ),
+    )
 
 
 @dataclass(frozen=True)

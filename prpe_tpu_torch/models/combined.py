@@ -9,9 +9,10 @@ ResNet trunk shared by four task branches.
 
 Each task is its own method, as in the JAX package; ``forward(x, task)``
 dispatches on the four ``TASKS``. Submodules carry the flax names, so the
-weight bridge carries a JAX variable tree across. The port serves: every
-BatchNorm is the folded inference one, and ``train=True`` only moves the
-margin EMA in ``face_logits`` (batch statistics come with training).
+weight bridge carries a JAX variable tree across. ``model.train()`` is the
+JAX package's ``train=True`` for the BatchNorms (batch statistics, running
+statistics moved) and IR-Net's dropout, the frozen trunk's included;
+``face_logits(train=True)`` also moves the margin EMA.
 """
 
 from __future__ import annotations

@@ -1,5 +1,7 @@
 """Shared building blocks (NCHW inside, fp32 parameters, compute in the
-activation dtype).
+activation dtype). ``model.train()`` puts every ``BatchNorm`` on batch
+statistics and every ``Dropout`` on, as ``train=True`` does through a
+whole JAX model.
 
 Counterpart of ``prpe_tpu/nn/common.py``. Parameters stay fp32 and each
 layer casts them to the dtype of its input, as flax's ``dtype=`` argument
@@ -49,18 +51,81 @@ class LayerNorm(nn.LayerNorm):
         return y.to(x.dtype)
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm folded into a per-channel scale and bias.
+class _BatchStatsNorm(torch.autograd.Function):
+    """flax ``BatchNorm`` on batch statistics: mean and the fast variance
+    E[x^2] - E[x]^2 (clamped at 0) reduced in fp32 (float64 stays float64)
+    over every axis but ``dim``; ``(x - mean) * (rsqrt(var + eps) * weight)
+    + bias`` in that precision, cast to the input dtype. Only x and the per-channel statistics are kept
+    for the backward, which is the analytic one of that expression."""
 
-    The scale and bias are computed in fp32 from the running statistics, then
-    applied as ``x * scale + bias`` in the activation dtype, exactly as
-    ``prpe_tpu.nn.common.inference_bn`` does. ``dim`` is the channel axis.
+    @staticmethod
+    def forward(ctx, x, weight, bias, dim: int, eps: float):
+        dims = [d for d in range(x.dim()) if d != dim]
+        shape = [1] * x.dim()
+        shape[dim] = -1
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(acc)
+        mean = xf.mean(dims)
+        var_raw = (xf * xf).mean(dims) - mean * mean
+        del xf
+        var = var_raw.clamp(min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        mul = rstd if weight is None else rstd * weight.to(acc)
+        y = (x.to(acc) - mean.view(shape)) * mul.view(shape)
+        if bias is not None:
+            y = y + bias.to(acc).view(shape)
+        ctx.save_for_backward(x, weight, mean, rstd, var_raw > 0)
+        ctx.dim, ctx.has_bias = dim, bias is not None
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, rstd, var_live = ctx.saved_tensors
+        dim = ctx.dim
+        dims = [d for d in range(x.dim()) if d != dim]
+        shape = [1] * x.dim()
+        shape[dim] = -1
+        g = dy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - mean.view(shape)) * rstd.view(shape)
+        dweight = dbias = None
+        if weight is not None and ctx.needs_input_grad[1]:
+            dweight = (g * xhat).sum(dims)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            dbias = g.sum(dims)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dxhat = g if weight is None else g * weight.to(mean.dtype).view(shape)
+            # a clamped variance is a constant: no gradient through it
+            var_term = (dxhat * xhat).mean(dims) * var_live
+            dx = (dxhat - dxhat.mean(dims).view(shape) - xhat * var_term.view(shape))
+            dx = (dx * rstd.view(shape)).to(x.dtype)
+        return dx, dweight, dbias, None, None
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm as the JAX package runs it (flax ``nn.BatchNorm``).
+
+    In eval mode, folded into a per-channel scale and bias: computed in fp32
+    from the running statistics, then applied as ``x * scale + bias`` in the
+    activation dtype, exactly as ``prpe_tpu.nn.common.inference_bn`` does.
+
+    In train mode, normalised with the batch's statistics (``_BatchStatsNorm``)
+    and the running statistics moved as flax moves them:
+    ``running = momentum * running + (1 - momentum) * batch``, with the
+    **biased** batch variance and flax's ``momentum`` (0.97 in ``ConvBN``,
+    0.9 elsewhere). ``freeze_stats`` holds the running statistics, so that
+    a recomputed forward (gradient checkpointing) moves them once only.
+    ``dim`` is the channel axis.
     """
 
-    def __init__(self, channels: int, eps: float, affine: bool = True, dim: int = 1):
+    def __init__(self, channels: int, eps: float, affine: bool = True, dim: int = 1,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
         self.dim = dim
+        self.momentum = momentum
+        self.freeze_stats = False
         if affine:
             self.weight = nn.Parameter(torch.empty(channels))
             self.bias = nn.Parameter(torch.empty(channels))
@@ -71,6 +136,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias, self.dim, self.eps)
+            if not self.freeze_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            return y
         scale = torch.rsqrt(self.running_var.float() + self.eps)
         if self.weight is not None:
             scale = scale * self.weight.float()
@@ -94,14 +167,38 @@ class PReLU(nn.Module):
         return torch.where(x >= 0, x, alpha * x)
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` in train mode: keep each element with probability
+    1 - ``rate`` and scale the kept ones by 1 / (1 - ``rate``); the identity
+    in eval mode. The mask is drawn from ``generator``, which the caller
+    sets (the train step does): a train-mode forward without one raises."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a torch.Generator: set .generator")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class ConvBN(nn.Module):
-    """Bias-free conv + folded BatchNorm (eps 1e-3) + optional SiLU."""
+    """Bias-free conv + BatchNorm (eps 1e-3, flax momentum 0.97) + optional
+    SiLU."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, s: int = 1, p: int = 0,
                  groups: int = 1, act: bool = True, eps: float = 1e-3):
         super().__init__()
         self.conv = Conv2d(cin, cout, k, s, p, groups=groups, bias=False)
-        self.bn = BatchNorm(cout, eps)
+        self.bn = BatchNorm(cout, eps, momentum=0.97)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

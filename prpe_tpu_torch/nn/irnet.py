@@ -5,7 +5,8 @@ L2-normalised embedding and the fp32 pre-normalisation norm. Depths 18 to
 100 stack ``BasicBlockIR``, 152 and 200 ``BottleneckIR`` (2048 output
 channels); ``mode="ir_se"`` adds a squeeze-excitation block to each unit.
 ``input_channels`` is 3 for face crops and 64 in the combined model, whose
-adapter feeds the face branch. The output linear reads the NCHW flatten
+adapter feeds the face branch. In train mode a ``Dropout(0.4)`` acts after
+the output BatchNorm. The output linear reads the NCHW flatten
 order (c, h, w); the weight bridge permutes the JAX model's (h, w, c) rows
 to match.
 """
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from prpe_tpu_torch.nn.common import BatchNorm, Conv2d, Linear, PReLU
+from prpe_tpu_torch.nn.common import BatchNorm, Conv2d, Dropout, Linear, PReLU
 
 _BN_EPS = 1e-5
 
@@ -115,7 +116,7 @@ class IRNet(nn.Module):
 
     def __init__(self, num_layers: int = 50, input_size: int = 112,
                  embedding_size: int = 512, dtype: torch.dtype = torch.float32,
-                 mode: str = "ir", input_channels: int = 3):
+                 mode: str = "ir", input_channels: int = 3, dropout_rate: float = 0.4):
         super().__init__()
         if mode not in ("ir", "ir_se"):
             raise ValueError(f"IRNet mode {mode!r} is not 'ir' or 'ir_se'")
@@ -136,6 +137,7 @@ class IRNet(nn.Module):
             self.add_module(f"body{i}", blk)
         spatial = input_size // 16
         self.output_bn = BatchNorm(cin, _BN_EPS)
+        self.dropout = Dropout(dropout_rate)
         self.output_linear = Linear(cin * spatial * spatial, embedding_size)
         self.output_bn1d = BatchNorm(embedding_size, _BN_EPS, affine=False)
 
@@ -144,7 +146,7 @@ class IRNet(nn.Module):
         x = self.input_prelu(self.input_bn(self.input_conv(x)))
         for i in range(self.n_blocks):
             x = getattr(self, f"body{i}")(x)
-        x = self.output_bn(x).flatten(1)  # (c, h, w) order
+        x = self.dropout(self.output_bn(x)).flatten(1)  # (c, h, w) order
         x = self.output_bn1d(self.output_linear(x))
         norm = torch.linalg.vector_norm(x.float(), dim=1, keepdim=True).clamp(min=1e-12)
         return x / norm.to(x.dtype), norm

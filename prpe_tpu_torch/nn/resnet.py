@@ -9,11 +9,13 @@ without a copy.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from prpe_tpu_torch.nn.common import BatchNorm, Conv2d, max_pool
 
@@ -45,10 +47,28 @@ class Bottleneck(nn.Module):
         return F.relu(out + shortcut)
 
 
+@contextlib.contextmanager
+def _stats_frozen(block: nn.Module):
+    """The BatchNorms of ``block`` keep their running statistics inside."""
+    bns = [m for m in block.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.freeze_stats = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.freeze_stats = False
+
+
 class ResNetTrunk(nn.Module):
     """conv1 .. layer4, no pooling head: NHWC (B, H, W, 3) -> NHWC
-    (B, H/32, W/32, 2048). ``remat`` is kept for the training slice; a
-    forward pass ignores it."""
+    (B, H/32, W/32, 2048).
+
+    ``remat`` recomputes each bottleneck block on the backward pass
+    (``torch.utils.checkpoint``, as ``jax.checkpoint`` per block in the JAX
+    package) when the trunk trains; the recomputation holds the running
+    BatchNorm statistics, so they move once a step, as in JAX. A forward
+    with no trainable trunk parameter ignores it."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), remat: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -71,6 +91,13 @@ class ResNetTrunk(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype).permute(0, 3, 1, 2)
         x = max_pool(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        remat = (self.remat and self.training and torch.is_grad_enabled()
+                 and any(p.requires_grad for p in self.parameters()))
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if remat:
+                x = checkpoint(block, x, use_reentrant=False,
+                               context_fn=lambda b=block: (contextlib.nullcontext(), _stats_frozen(b)))
+            else:
+                x = block(x)
         return x.permute(0, 2, 3, 1)

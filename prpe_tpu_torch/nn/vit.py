@@ -15,7 +15,9 @@ time as the JAX package reads it at trace time (:func:`attn_mode`):
   ``pallas_<x>``: the (B, H, T, D) kernel (``mhsa_bhtd``), with the
   transposes around it that these modes pay in the JAX package;
 - ``pallas_lnfused``: the whole LN -> q/k/v -> attention -> proj ->
-  residual half-block in one kernel (``fused_ln_mhsa``);
+  residual half-block in one kernel (``fused_ln_mhsa``) in eval mode; in
+  train mode the module path, whose attention is then the (B, H, T, D)
+  kernel, as the JAX package's training forward takes;
 - ``einsum_bf16sm``: plain matmuls, softmax in the activation dtype;
 - anything else: plain matmuls, fp32 softmax cast back.
 """
@@ -103,9 +105,9 @@ class ViTBlock(nn.Module):
         self.fc2 = Linear(hidden * mlp_ratio, hidden)
 
     def forward(self, x):
-        if attn_mode() == "pallas_lnfused":
-            # the JAX package runs this kernel in inference only; the port
-            # serves only, so its gate always holds
+        if attn_mode() == "pallas_lnfused" and not self.training:
+            # the fused half-block has no backward: inference only, as in
+            # the JAX package; a training forward takes the module path
             a = self.attn
             x = fused_ln_mhsa(x, self.ln1.weight, self.ln1.bias, a.q.weight,
                               a.q.bias, a.k.weight, a.k.bias, a.v.weight, a.v.bias,

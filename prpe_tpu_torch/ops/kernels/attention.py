@@ -16,6 +16,10 @@ implementation is the plain version; its CUDA implementation launches the
 kernel. The wrappers check shapes, dtypes and devices before the op, and
 refuse a tensor that is on neither: CPU tensors take the plain versions,
 CUDA tensors launch the kernel or raise.
+
+Both ops are differentiable: the forward is the kernel (or the plain
+version on the CPU) and the backward is :func:`mhsa_backward`, the JAX
+package's recompute (``attention_kernel.py::_bwd``) in PyTorch ops.
 """
 
 from __future__ import annotations
@@ -108,6 +112,59 @@ def _(q, k, v, heads):
 @_mhsa_bhtd_op.register_fake
 def _(q, k, v):
     return torch.empty_like(q)
+
+
+def mhsa_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor):
+    """The attention backward of ``attention_kernel.py::_bwd``, recomputed
+    from q/k/v over (B, T, H, D) tensors (any strides), with its roundings:
+    the logits come out in the input dtype and are scaled after that
+    rounding; the softmax runs in fp32 and P is rounded to the input dtype
+    for dV = P^T g; dP = g V^T is rounded to the input dtype, then taken to
+    fp32; dS = P (dP - sum(dP P)) in fp32, scaled, then rounded; dQ and dK
+    in the input dtype. Returns (dq, dk, dv) in the same layout."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    g = g.to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.softmax(s.float(), dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype), g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v).float()
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = (ds * scale).to(q.dtype)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return dq, dk, dv
+
+
+def _save_qkv(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:3])
+
+
+def _packed_backward(ctx, grad):
+    q, k, v = ctx.saved_tensors
+    b, t, c = q.shape
+    heads = ctx.heads
+    split = lambda x: x.view(b, t, heads, c // heads)  # noqa: E731
+    grads = mhsa_backward(split(q), split(k), split(v), split(grad.contiguous()))
+    return (*(x.reshape(b, t, c) for x in grads), None)
+
+
+def _save_packed(ctx, inputs, output):
+    _save_qkv(ctx, inputs, output)
+    ctx.heads = inputs[3]
+
+
+def _bhtd_backward(ctx, grad):
+    q, k, v = ctx.saved_tensors
+    bthd = lambda x: x.transpose(1, 2)  # noqa: E731  (B, H, T, D) <-> (B, T, H, D)
+    grads = mhsa_backward(bthd(q), bthd(k), bthd(v), bthd(grad))
+    return tuple(bthd(x).contiguous() for x in grads)
+
+
+# the kernels stay the forward; the backward is the JAX package's einsum
+# recompute (a product outside any Pallas kernel), on either device
+_mhsa_packed_op.register_autograd(_packed_backward, setup_context=_save_packed)
+_mhsa_bhtd_op.register_autograd(_bhtd_backward, setup_context=_save_qkv)
 
 
 def mhsa_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:

@@ -81,11 +81,17 @@ def to_nhwc(t):
 
 
 @pytest.mark.parametrize("name", ["DetectionConfig", "PoseConfig", "CascadeConfig", "AdaFaceConfig",
-                                  "CombinedModelConfig"])
+                                  "CombinedModelConfig", "OptimConfig", "DataConfig",
+                                  "TaskConfig", "TrainConfig"])
 def test_config_fields_match(name):
     want = dataclasses.asdict(getattr(jax_config, name)())
     got = dataclasses.asdict(getattr(port_config, name)())
     assert got == want
+
+
+def test_default_task_configs_match():
+    want = [dataclasses.asdict(t) for t in jax_config.default_task_configs()]
+    assert [dataclasses.asdict(t) for t in port_config.default_task_configs()] == want
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

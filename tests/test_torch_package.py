@@ -39,13 +39,33 @@ combined = CombinedModel(cfg, device="cpu")
 with torch.no_grad():
     for task in TASKS:
         combined(torch.rand(1, 64, 64, 3), task)
+from prpe_tpu_torch.core.config import OptimConfig
+from prpe_tpu_torch.data import synthetic
+from prpe_tpu_torch.train.optim import build_optimizer
+from prpe_tpu_torch.train.state import create_train_state
+from prpe_tpu_torch.train.steps import make_train_step, trainable_params
+import numpy as np
+tx = build_optimizer(OptimConfig())
+state = create_train_state(combined, {{"pose_estimation": tx}},
+                           {{"pose_estimation": trainable_params(combined, "pose_estimation")}})
+batch = synthetic.pose_batch(np.random.default_rng(0), 2, 64, 2)
+import dataclasses
+tcfg = dataclasses.replace(cfg, pose=dataclasses.replace(pose, heatmap_size=(8, 8)))
+state, metrics = make_train_step(combined, "pose_estimation", tx, tcfg)(state, batch)
+assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
 print("imported", len(mods), "modules")
 """
-# the modules of the combined model and the serving CLIs
+# the modules of the combined model, the serving CLIs and the training path
 NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.nn.adapters", "prpe_tpu_torch.ops.margin",
                "prpe_tpu_torch.data.image", "prpe_tpu_torch.cli.infer",
-               "prpe_tpu_torch.cli.export", "prpe_tpu_torch.cli.build_model")
+               "prpe_tpu_torch.cli.export", "prpe_tpu_torch.cli.build_model",
+               "prpe_tpu_torch.ops.losses", "prpe_tpu_torch.ops.assigner",
+               "prpe_tpu_torch.data.packed", "prpe_tpu_torch.data.synthetic",
+               "prpe_tpu_torch.train.state", "prpe_tpu_torch.train.optim",
+               "prpe_tpu_torch.train.steps", "prpe_tpu_torch.train.metrics",
+               "prpe_tpu_torch.train.checkpoint", "prpe_tpu_torch.train.round_robin",
+               "prpe_tpu_torch.cli.train")
 
 
 def test_port_imports_and_runs_without_jax():
