@@ -74,7 +74,18 @@ exit on the first fault:
     epoch with checkpoints and a resume from ``latest`` for a second, then
     the full preset at batch 4 for an epoch without a combined checkpoint,
     its launches counted (K2 12 per pose step, K1 once per detection
-    validation batch).
+    validation batch) and its files checked (the slim ``best_*`` of both
+    detection tasks, from the mAP hook, and of face recognition);
+14. train_data: ``cli/train.py::main`` from datasets on disk, written by
+    ``tools/make_dataset.py`` (detection and pose 64 train and 32 val PNGs
+    of 640^2, 16 identities x 20 face crops of 112^2), the full preset at
+    batch 32 for an epoch, once inline and once with 2 decode workers:
+    every metric finite, ``val/mAP50-95`` on both detection tasks,
+    ``val/ver_acc``, ``val/kpt_AP``, the detection ``best_*`` checkpoints,
+    K1 once per detection val batch and K2 12 per pose train step plus 24
+    per pose val batch; ms per step from disk beside the ``train`` phase's,
+    the loader's wait per step, the hooks' host seconds, the host decode
+    images/s at 0 and 2 workers.
 
 Every phase prints one JSON line with the card's name and power limit. The
 last two lines are the ``kernels`` summary and ``{"ok": true, ...}``. The
@@ -1116,7 +1127,7 @@ def phase_train(device, cfg=None, dtype=torch.bfloat16, batch: int = 32, size: i
     gen = torch.Generator(device=device).manual_seed(0)
     trunk = {k: p.detach().clone() for k, p in model.named_parameters()
              if k.startswith("backbone")}
-    per_step, per_eval, rows, profiles = {}, {}, {}, {}
+    per_step, per_eval, rows, profiles, step_ms = {}, {}, {}, {}, {}
     host_batches = train_batches(cfg, batch, size, 0, min(1000, cfg.face.num_classes))
     for task in TASKS:
         step = make_train_step(model, task, txs[task], cfg)
@@ -1147,6 +1158,7 @@ def phase_train(device, cfg=None, dtype=torch.bfloat16, batch: int = 32, size: i
 
         ms = time_ms(one, runs=steps, warmup=0)
         _sync(device)
+        step_ms[task] = ms
         state = holder["state"]
         counts = {k: v for k, v in launches.items() if v}
         per_step[task] = {k: v / steps for k, v in counts.items()}
@@ -1182,7 +1194,7 @@ def phase_train(device, cfg=None, dtype=torch.bfloat16, batch: int = 32, size: i
     del model, state
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    return {"step": per_step, "eval": per_eval}
+    return {"step": per_step, "eval": per_eval, "ms": step_ms}
 
 
 def phase_train_cli(device, full_batch: int = 4,
@@ -1192,7 +1204,8 @@ def phase_train_cli(device, full_batch: int = 4,
     its checkpoints, then ``--resume-checkpoint latest`` for a second; then
     the full preset (fresh weights, no component files) at batch
     ``full_batch`` for 1 epoch with ``--save-every 2`` (no combined
-    checkpoint; the face task's slim ``best_*`` is still written), with
+    checkpoint; the slim ``best_*`` of each task whose monitor has a value
+    is: both detection tasks' from the mAP hook, face recognition's), with
     every launch counter at zero before it. Returns that run's launches."""
     import json as json_
     import shutil
@@ -1237,6 +1250,11 @@ def phase_train_cli(device, full_batch: int = 4,
         if counts != want:
             fail(f"train_cli: the full run launched {counts}, expected {want}")
         written = sorted(os.listdir(os.path.join(tmp, "full", "ck")))
+        # pose has no validation loader on synthetic data, so no monitor
+        want_written = ["best_face_detection.pt", "best_face_recognition.pt",
+                        "best_person_detection.pt", "meta.json"]
+        if written != want_written:
+            fail(f"train_cli: the full run wrote {written}, expected {want_written}")
         history = {}
         for task in ("person_detection", "face_detection", "face_recognition", "pose_estimation"):
             with open(os.path.join(tmp, "full", "log", f"{task}_history.csv")) as f:
@@ -1248,9 +1266,162 @@ def phase_train_cli(device, full_batch: int = 4,
         shutil.rmtree(tmp, ignore_errors=True)
     emit("train_cli", tiny_two_runs_s=tiny_s, tiny_checkpoints=epochs, full_batch=full_batch,
          full_run_s=full_s, full_launches=counts, full_written=written,
-         full_history={t: {k: h[k] for k in h if k in ("train/loss", "val/loss", "val_acc")}
+         full_history={t: {k: h[k] for k in h if k in ("train/loss", "val/loss", "val_acc",
+                                                       "val/mAP50-95")}
                        for t, h in history.items()})
     return counts
+
+
+TASK_METRIC = {"person_detection": "val/mAP50-95", "face_detection": "val/mAP50-95",
+               "face_recognition": "val/ver_acc", "pose_estimation": "val/kpt_AP"}
+
+
+def decode_rate(tmp: str, batch: int, size: int, workers: int) -> dict:
+    """Host images/s of each task's train loader alone (decode, resize,
+    flip, collate; no card), over one epoch of ``loader.host``, with the
+    native library already built."""
+    from prpe_tpu_torch import native
+    from prpe_tpu_torch.core.config import DetectionConfig
+    from prpe_tpu_torch.data import detection, faces, pipeline, pose
+
+    native.get_lib()
+    max_gt = DetectionConfig().max_gt
+    datasets = {
+        "person_detection": detection.YoloTxtDataset(os.path.join(tmp, "person"), "train", size,
+                                                     max_gt, augment=True),
+        "face_detection": detection.YoloTxtDataset(os.path.join(tmp, "face"), "train", size,
+                                                   max_gt, augment=True),
+        "face_recognition": faces.IdentityFolderDataset(os.path.join(tmp, "faces"), "train",
+                                                        augment=True),
+        "pose_estimation": pose.CocoKeypointDataset(os.path.join(tmp, "pose"), "train",
+                                                    image_size=size, augment=True)}
+    rates = {}
+    for task, ds in datasets.items():
+        loader = pipeline.make_epoch_loader(ds, batch, num_workers=workers, prefetch=0)
+        try:
+            t0 = time.perf_counter()
+            n = sum(len(b["image"]) for b in loader.host(0))
+            rates[task] = n / (time.perf_counter() - t0)
+        finally:
+            loader.close()
+    return rates
+
+
+def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640,
+                     batch: int = 32, identities: int = 16, per_identity: int = 20,
+                     full=("--preset", "full"), layers: int = 12, workers=(0, 2),
+                     train_ms=None) -> dict:
+    """``cli/train.py::main`` from datasets on disk: the four layouts written
+    by ``tools/make_dataset.py`` into a temporary directory (detection and
+    pose ``n_train`` + ``n_val`` PNGs of ``size``^2 each; ``identities`` x
+    ``per_identity`` face crops of 112^2, of which the reader's 10 % split
+    must fill one val batch), then one epoch at ``batch`` per run, once for
+    each decode-worker count in ``workers``, every launch counter at zero
+    before each run. Fails on a non-finite metric, a missing ``val/mAP50-95``
+    (both detection tasks), ``val/ver_acc`` or ``val/kpt_AP``, a missing
+    detection ``best_*`` checkpoint, or launches other than K1 once per
+    detection val batch and K2 ``layers`` per pose train step plus
+    2 ``layers`` per pose val batch. Prints per task the ms per train step
+    from disk (beside ``train_ms``, the ``train`` phase's on a reused device
+    batch), the loader's wait per step, the seconds each eval hook takes on
+    the host, the metrics, and the host decode images/s of each worker
+    count. Returns the first run's launches."""
+    import csv
+    import shutil
+    import tempfile
+
+    from prpe_tpu_torch.cli import train as cli
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.tools.make_dataset import make_dataset
+
+    tmp = tempfile.mkdtemp(prefix="prpe_train_data_")
+    runs, first_counts = {}, None
+    try:
+        t0 = time.perf_counter()
+        make_dataset(tmp, n_train, n_val, det_size=size, pose_size=size, face_size=112,
+                     identities=identities, per_identity=per_identity)
+        dataset_s = time.perf_counter() - t0
+        decode = {w: decode_rate(tmp, batch, size, w) for w in workers}
+        build = cli.build_task_loaders
+        for w in workers:
+            captured, hook_s = {}, {}
+
+            def timed(task, hook):
+                def run(outputs):
+                    t = time.perf_counter()
+                    try:
+                        return hook(outputs)
+                    finally:
+                        hook_s[task] = hook_s.get(task, 0.0) + time.perf_counter() - t
+                return run
+
+            def capture(args, cfg, device=None):
+                loaders = build(args, cfg, device)
+                for task, tl in loaders.items():
+                    if "eval_hook" in tl:
+                        tl["eval_hook"] = timed(task, tl["eval_hook"])
+                captured.update(loaders)
+                return loaders
+
+            name = f"workers{w}"
+            argv = ["--device", str(device), *full, "--image-size", str(size), "--batch-size",
+                    str(batch), "--epochs", "1", "--num-workers", str(w), "--save-every", "2",
+                    "--person-data-dir", os.path.join(tmp, "person"),
+                    "--face-data-dir", os.path.join(tmp, "face"),
+                    "--face-rec-data-dir", os.path.join(tmp, "faces"),
+                    "--pose-data-dir", os.path.join(tmp, "pose"),
+                    "--component-dir", os.path.join(tmp, "no_components"),
+                    "--checkpoint-dir", os.path.join(tmp, name, "ck"),
+                    "--log-dir", os.path.join(tmp, name, "log")]
+            cli.build_task_loaders = capture
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                if cli.main(argv) != 0:
+                    fail(f"train_data: the run at {w} workers did not return 0")
+                _sync(device)
+                run_s = time.perf_counter() - t0
+            finally:
+                cli.build_task_loaders = build
+            counts = {k: v for k, v in launches.items() if v}
+            if set(captured) != set(TASK_METRIC) or not all(
+                    hasattr(captured[t]["train"], "host") for t in TASK_METRIC):
+                fail(f"train_data: not every task read its dataset ({sorted(captured)})")
+            val_batches = {t: captured[t]["val"].steps_per_epoch for t in TASK_METRIC}
+            pose_steps = captured["pose_estimation"]["train"].steps_per_epoch
+            want = {"nms": val_batches["person_detection"] + val_batches["face_detection"],
+                    "mhsa": layers * pose_steps + 2 * layers * val_batches["pose_estimation"]}
+            if counts != want or min(val_batches.values()) < 1:
+                fail(f"train_data: {w} workers launched {counts}, expected {want} "
+                     f"(val batches {val_batches}, pose steps {pose_steps})")
+            written = sorted(os.listdir(os.path.join(tmp, name, "ck")))
+            rows = {}
+            for task, metric in TASK_METRIC.items():
+                with open(os.path.join(tmp, name, "log", f"{task}_history.csv")) as f:
+                    hist = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
+                if metric not in hist or not all(v == v and abs(v) != float("inf")
+                                                 for v in hist.values()):
+                    fail(f"train_data: {task} at {w} workers logged {hist}")
+                if "detection" in task and f"best_{task}.pt" not in written:
+                    fail(f"train_data: no best_{task}.pt at {w} workers ({written})")
+                stats = captured[task]["train"].stats
+                rows[task] = dict(
+                    train_steps=stats["batches"],
+                    ms_per_step=batch * 1e3 / hist["train/images_per_sec"],
+                    train_phase_ms_per_step=(train_ms or {}).get(task),
+                    loader_wait_ms_per_step=stats["wait_s"] * 1e3 / max(stats["batches"], 1),
+                    val_batches=val_batches[task], hook_s=hook_s.get(task),
+                    metrics={k: hist[k] for k in hist if k in (
+                        "train/loss", "val/loss", "val/mAP50", "val/mAP50-95", "val/ver_acc",
+                        "val/kpt_AP", "val_acc")})
+            runs[name] = dict(run_s=run_s, launches=counts, written=written, tasks=rows)
+            first_counts = first_counts or counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("train_data", image_size=size, batch=batch, train_images=n_train, val_images=n_val,
+         face_crops=identities * per_identity, dataset_s=dataset_s,
+         decode_images_per_s={f"workers{w}": r for w, r in decode.items()}, runs=runs)
+    return first_counts
 
 
 def report_build(logs) -> None:
@@ -1345,6 +1516,7 @@ def main() -> int:
     phase_train_reference(device)
     train_counts = phase_train(device)
     cli_counts = phase_train_cli(device)
+    data_counts = phase_train_data(device, train_ms=train_counts["ms"])
 
     src, pallas = "prpe_tpu_torch/csrc/", "prpe_tpu/ops/pallas/"
     row = lambda r: {k: r[k] for k in ROW_KEYS}  # noqa: E731
@@ -1363,14 +1535,16 @@ def main() -> int:
              replaces=pallas + "nms_kernel.py:42", launches=counts["pallas_packed"]["nms"],
              launches_f32=counts_f32["pallas_packed"]["nms"],
              launches_detection_eval_step=train_counts["eval"]["person_detection"]["nms"],
-             launches_train_cli=cli_counts["nms"], **row(nms_rows[0]),
+             launches_train_cli=cli_counts["nms"], launches_train_data=data_counts["nms"],
+             **row(nms_rows[0]),
              **suffixed(nms_rows[1], "_k1024")),
         dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
              replaces=pallas + "attention_kernel.py:92",
              launches=counts["pallas_packed"]["mhsa"],
              launches_f32=counts_f32["pallas_packed"]["mhsa"],
              launches_pose_train_step=train_counts["step"]["pose_estimation"]["mhsa"],
-             launches_train_cli=cli_counts["mhsa"], **attn_keys(mhsa_rows),
+             launches_train_cli=cli_counts["mhsa"], launches_train_data=data_counts["mhsa"],
+             **attn_keys(mhsa_rows),
              **grad_keys("packed")),
     ]
     # one kernel serves the three (B, H, T, D) Pallas kernels; launches per

@@ -6,14 +6,18 @@
 
 The JAX package's training CLI (``prpe_tpu/cli/train.py``) with the same
 flags, less the mesh, multi-host and device-resident ones, plus
-``--device`` (CUDA unless the caller names another). A task whose dataset
-directory does not exist trains on deterministic synthetic batches
-(``data/synthetic.py``), eight a train epoch and two a validation pass, as
-in the JAX package; a dataset directory that exists is refused until the
-dataset readers are ported (ROADMAP.md). Validation metrics are the eval
-steps' own (losses, accuracies, PCK); the mAP, face-verification and COCO
-keypoint hooks come with the eval slice, so the detection monitors
-(``val/mAP50-95``) stay unset and save no ``best_*`` checkpoint.
+``--device`` (CUDA unless the caller names another). Each task reads its
+dataset directory (``--person-data-dir`` and ``--face-data-dir``: YOLO-txt,
+``--face-rec-data-dir``: identity folders, ``--pose-data-dir``: COCO
+keypoints; PNG and BMP decode without PIL, JPEG needs it); its batches are
+decoded by ``--num-workers`` forked workers (0: on the prefetch thread) and
+copied to the card on a side stream. A task whose directory holds no
+dataset trains on deterministic synthetic batches (``data/synthetic.py``),
+eight a train epoch and two a validation pass, as in the JAX package.
+Validation adds the JAX CLI's hooks: detection mAP (``val/mAP50-95``, the
+detection tasks' monitor, synthetic data included), face verification
+(``val/ver_acc``) and COCO keypoint AP (``val/kpt_AP``) with their
+datasets.
 """
 
 from __future__ import annotations
@@ -28,44 +32,87 @@ import torch
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _refuse_dataset(task: str, root: str) -> None:
-    raise NotImplementedError(
-        f"[{task}] a dataset exists at {root}, and the port has no dataset reader yet "
-        "(they come with the data slice, ROADMAP.md); move it away to train on "
-        "synthetic data")
+def build_task_loaders(args, cfg, device=None):
+    """Per task, its train and val loaders and eval hook: the dataset
+    readers where the task's directory holds a dataset (batches prefetched
+    to ``device``), else deterministic synthetic batches. Hooks and val
+    loaders as in the JAX package's CLI: the mAP hook on both detection
+    tasks, synthetic or not; the verification and keypoint hooks, and the
+    pose val loader, only with their datasets."""
+    from prpe_tpu_torch.data import pipeline, synthetic
+    from prpe_tpu_torch.data.detection import YoloTxtDataset
+    from prpe_tpu_torch.data.faces import IdentityFolderDataset
+    from prpe_tpu_torch.data.pose import CocoKeypointDataset
+    from prpe_tpu_torch.eval.map import detection_eval_hook
+    from prpe_tpu_torch.eval.pose_hook import pose_eval_hook
+    from prpe_tpu_torch.eval.verification import face_verification_hook
 
-
-def build_task_loaders(args, cfg):
-    """Per task, the synthetic train (and val) loaders when its dataset
-    directory is missing."""
-    from prpe_tpu_torch.data import synthetic
+    def epochs(dataset, max_samples, train):
+        return pipeline.make_epoch_loader(
+            dataset, args.batch_size, max_samples=max_samples, shuffle=train, device=device,
+            num_workers=args.num_workers if train else 0)
 
     loaders = {}
-    for task, root in (("person_detection", args.person_data_dir),
-                       ("face_detection", args.face_data_dir)):
-        if pathlib.Path(root).exists():
-            _refuse_dataset(task, root)
-        print(f"[{task}] dataset not found at {root}; using synthetic data")
+
+    def detection(task, root):
+        try:
+            train = YoloTxtDataset(root, "train", args.image_size, cfg.detection.max_gt,
+                                   augment=True)
+            val = YoloTxtDataset(root, "val", args.image_size, cfg.detection.max_gt)
+            return {"train": epochs(train, args.max_train_samples, True),
+                    "val": epochs(val, args.max_val_samples, False),
+                    "eval_hook": detection_eval_hook(args.image_size)}
+        except FileNotFoundError:
+            print(f"[{task}] dataset not found at {root}; using synthetic data")
+            kw = dict(batch_size=args.batch_size, image_size=args.image_size,
+                      max_gt=cfg.detection.max_gt)
+            return {"train": synthetic.make_loader(task, batches_per_epoch=8, **kw),
+                    "val": synthetic.make_loader(task, batches_per_epoch=2, seed=9, **kw),
+                    "eval_hook": detection_eval_hook(args.image_size)}
+
+    loaders["person_detection"] = detection("person_detection", args.person_data_dir)
+    loaders["face_detection"] = detection("face_detection", args.face_data_dir)
+
+    try:
+        ftrain = IdentityFolderDataset(args.face_rec_data_dir, "train", augment=True)
+        fval = IdentityFolderDataset(args.face_rec_data_dir, "val")
+        loaders["face_recognition"] = {"train": epochs(ftrain, args.max_train_samples, True),
+                                       "val": epochs(fval, args.max_val_samples, False),
+                                       "eval_hook": face_verification_hook()}
+    except (FileNotFoundError, StopIteration, OSError):
+        print(f"[face_recognition] dataset not found at {args.face_rec_data_dir}; synthetic")
         kw = dict(batch_size=args.batch_size, image_size=args.image_size,
-                  max_gt=cfg.detection.max_gt)
-        loaders[task] = {"train": synthetic.make_loader(task, batches_per_epoch=8, **kw),
-                         "val": synthetic.make_loader(task, batches_per_epoch=2, seed=9, **kw)}
-    if pathlib.Path(args.face_rec_data_dir).exists():
-        _refuse_dataset("face_recognition", args.face_rec_data_dir)
-    print(f"[face_recognition] dataset not found at {args.face_rec_data_dir}; synthetic")
-    kw = dict(batch_size=args.batch_size, image_size=args.image_size,
-              num_classes=cfg.face.num_classes)
-    loaders["face_recognition"] = {
-        "train": synthetic.make_loader("face_recognition", batches_per_epoch=8, **kw),
-        "val": synthetic.make_loader("face_recognition", batches_per_epoch=2, seed=9, **kw)}
-    if pathlib.Path(args.pose_data_dir).exists():
-        _refuse_dataset("pose_estimation", args.pose_data_dir)
-    print(f"[pose_estimation] dataset not found at {args.pose_data_dir}; synthetic")
-    loaders["pose_estimation"] = {
-        "train": synthetic.make_loader("pose_estimation", batches_per_epoch=8,
-                                       batch_size=args.batch_size, image_size=args.image_size,
-                                       max_instances=cfg.pose.max_instances)}
+                  num_classes=cfg.face.num_classes)
+        loaders["face_recognition"] = {
+            "train": synthetic.make_loader("face_recognition", batches_per_epoch=8, **kw),
+            "val": synthetic.make_loader("face_recognition", batches_per_epoch=2, seed=9, **kw)}
+
+    try:
+        ptrain = CocoKeypointDataset(args.pose_data_dir, "train", image_size=args.image_size,
+                                     max_instances=cfg.pose.max_instances, augment=True)
+        pval = CocoKeypointDataset(args.pose_data_dir, "val", image_size=args.image_size,
+                                   max_instances=cfg.pose.max_instances)
+        loaders["pose_estimation"] = {"train": epochs(ptrain, args.max_train_samples, True),
+                                      "val": epochs(pval, args.max_val_samples, False),
+                                      "eval_hook": pose_eval_hook(args.image_size,
+                                                                  args.keypoint_thresh)}
+    except (FileNotFoundError, OSError):
+        print(f"[pose_estimation] dataset not found at {args.pose_data_dir}; synthetic")
+        loaders["pose_estimation"] = {
+            "train": synthetic.make_loader("pose_estimation", batches_per_epoch=8,
+                                           batch_size=args.batch_size,
+                                           image_size=args.image_size,
+                                           max_instances=cfg.pose.max_instances)}
     return loaders
+
+
+def close_loaders(loaders) -> None:
+    """Stop every loader's decode workers (synthetic loaders have none)."""
+    for task_loaders in loaders.values():
+        for key in ("train", "val"):
+            fn = task_loaders.get(key)
+            if fn is not None and hasattr(fn, "close"):
+                fn.close()
 
 
 def model_config(args):
@@ -117,8 +164,9 @@ def parse_args(argv=None):
     ap.add_argument("--tasks", default=None,
                     help="comma-separated subset of tasks to round-robin (default: all four)")
     ap.add_argument("--num-workers", type=int, default=0,
-                    help="decode worker processes per train loader (used by the dataset "
-                         "readers; the synthetic loaders ignore it)")
+                    help="decode worker processes per train loader of a dataset on disk "
+                         "(forked at start-up; 0 decodes on the prefetch thread; the "
+                         "synthetic loaders have none)")
     ap.add_argument("--dtype", choices=tuple(_DTYPES), default="bfloat16",
                     help="compute dtype; parameters stay fp32")
     ap.add_argument("--preset", choices=("full", "tiny"), default="full",
@@ -138,14 +186,22 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     args = parse_args(argv)
 
-    from prpe_tpu_torch.cli.build_model import build_variables
-    from prpe_tpu_torch.core.config import TrainConfig, default_task_configs
     from prpe_tpu_torch.core.device import resolve_device
-    from prpe_tpu_torch.train.round_robin import RoundRobinTrainer
 
     device = resolve_device(args.device)
     cfg = model_config(args)
-    loaders = build_task_loaders(args, cfg)
+    loaders = build_task_loaders(args, cfg, device)
+    try:
+        return _train(args, cfg, device, loaders)
+    finally:
+        close_loaders(loaders)
+
+
+def _train(args, cfg, device, loaders) -> int:
+    from prpe_tpu_torch.cli.build_model import build_variables
+    from prpe_tpu_torch.core.config import TrainConfig, default_task_configs
+    from prpe_tpu_torch.train.round_robin import RoundRobinTrainer
+
     if args.tasks:
         keep = [t.strip() for t in args.tasks.split(",") if t.strip()]
         unknown = [t for t in keep if t not in loaders]

@@ -53,6 +53,8 @@ def _to_host_tree(x):
         x = x.detach().cpu()
         # numpy has no bfloat16
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    if isinstance(x, dict):
+        return {k: _to_host_tree(v) for k, v in x.items()}
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(_to_host_tree(v) for v in x))
     if isinstance(x, (list, tuple)):
@@ -173,7 +175,10 @@ class RoundRobinTrainer:
             for batch in rt.val_loader(epoch):
                 metrics, preds = rt.eval_step(batch)
                 collected.append((metrics, next(iter(batch.values())).shape[0]))
-                outputs.append((_to_host_tree(preds), batch))
+                # the hooks read numpy: a host copy of the batch, which the
+                # prefetcher may have put on the card
+                if rt.eval_hook is not None:
+                    outputs.append((_to_host_tree(preds), _to_host_tree(batch)))
         for m, bs in _to_host(collected):
             tracker.update(m, bs)
         means = {f"val/{k}": v for k, v in tracker.means().items()}

@@ -53,9 +53,28 @@ import dataclasses
 tcfg = dataclasses.replace(cfg, pose=dataclasses.replace(pose, heatmap_size=(8, 8)))
 state, metrics = make_train_step(combined, "pose_estimation", tx, tcfg)(state, batch)
 assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+import tempfile
+from prpe_tpu_torch.data import pipeline
+from prpe_tpu_torch.data.detection import YoloTxtDataset
+from prpe_tpu_torch.data.faces import IdentityFolderDataset
+from prpe_tpu_torch.data.pose import CocoKeypointDataset
+from prpe_tpu_torch.eval.pose_hook import pose_eval_hook
+from prpe_tpu_torch.tools.make_dataset import make_dataset
+with tempfile.TemporaryDirectory() as d:
+    make_dataset(d, 4, 2, det_size=32, pose_size=32, face_size=16, identities=2, per_identity=3)
+    loader = pipeline.make_epoch_loader(YoloTxtDataset(d + "/person", "train", 24, 4), 2,
+                                        num_workers=1)
+    assert [b["image"].shape for b in loader(0)] == [(2, 24, 24, 3)] * 2
+    loader.close()
+    assert IdentityFolderDataset(d + "/faces", "train", 8)[0]["image"].shape == (8, 8, 3)
+    pose = CocoKeypointDataset(d + "/pose", "val", image_size=24)
+    batch = pipeline.default_collate([pose[0], pose[1]])
+    hm = pose_eval_hook(24)([((batch["keypoints"][:, 0, :, :2], np.ones((2, 17))), batch)])
+    assert hm["kpt_AP"] > 0.99, hm
 print("imported", len(mods), "modules")
 """
-# the modules of the combined model, the serving CLIs and the training path
+# the modules of the combined model, the serving CLIs, the training path,
+# the eval hooks and the data layer
 NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.nn.adapters", "prpe_tpu_torch.ops.margin",
                "prpe_tpu_torch.data.image", "prpe_tpu_torch.cli.infer",
@@ -65,7 +84,13 @@ NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.train.state", "prpe_tpu_torch.train.optim",
                "prpe_tpu_torch.train.steps", "prpe_tpu_torch.train.metrics",
                "prpe_tpu_torch.train.checkpoint", "prpe_tpu_torch.train.round_robin",
-               "prpe_tpu_torch.cli.train")
+               "prpe_tpu_torch.cli.train",
+               "prpe_tpu_torch.eval.map", "prpe_tpu_torch.eval.verification",
+               "prpe_tpu_torch.eval.keypoint_eval", "prpe_tpu_torch.eval.pose_hook",
+               "prpe_tpu_torch.native", "prpe_tpu_torch.data.detection",
+               "prpe_tpu_torch.data.faces", "prpe_tpu_torch.data.pose",
+               "prpe_tpu_torch.data.loader", "prpe_tpu_torch.data.pipeline",
+               "prpe_tpu_torch.tools.make_dataset")
 
 
 def test_port_imports_and_runs_without_jax():
@@ -116,6 +141,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         export.main(["--model", "vitpose", "--preset", "tiny"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model.main(["--component-dir", "none"])
+    from prpe_tpu_torch.cli import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--preset", "tiny"])
 
 
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):

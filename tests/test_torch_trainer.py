@@ -5,7 +5,8 @@ Checkpoints: save and restore, keep-N, the per-task best, the leftovers of
 a torn save and a torn ``meta.json``. Trainer: the per-task steps in
 order, the monitor fallbacks, EMA weights for evaluation, and a resume in
 the middle of an epoch's cycle. CLI: ``main`` end to end, a resume from
-its own checkpoint, and the refusal of a dataset directory that exists.
+its own checkpoint, and a directory without a dataset refused as one
+(training from datasets on disk: ``tests/test_torch_train_data.py``).
 """
 
 import json
@@ -220,12 +221,20 @@ def test_cli_train_main_and_resume(tmp_path, capsys):
     assert [row.split(",")[0] for row in history[1:]] == ["0", "1"]
 
 
-def test_cli_refuses_a_dataset_and_unknown_tasks(tmp_path):
+def test_cli_refuses_a_dataset_and_unknown_tasks(tmp_path, capsys):
+    """A directory that holds no dataset (no ``images/train``) is refused as
+    one: the task falls back to synthetic batches, as in the JAX package.
+    An unknown ``--tasks`` entry stops the CLI."""
     data = tmp_path / "coco_person"
     data.mkdir()
     args = cli_args(tmp_path, "--epochs", "1")
     args[args.index("--person-data-dir") + 1] = str(data)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli_train.main(args)
+    parsed = cli_train.parse_args(args)
+    loaders = cli_train.build_task_loaders(parsed, cli_train.model_config(parsed))
+    assert f"[person_detection] dataset not found at {data}; using synthetic data" in \
+        capsys.readouterr().out
+    person = loaders["person_detection"]
+    assert person["train"].steps_per_epoch == 8 and not hasattr(person["train"], "host")
+    assert "eval_hook" in person
     with pytest.raises(SystemExit, match="unknown task"):
         cli_train.main(cli_args(tmp_path, "--tasks", "segmentation"))
