@@ -85,7 +85,21 @@ exit on the first fault:
     K1 once per detection val batch and K2 12 per pose train step plus 24
     per pose val batch; ms per step from disk beside the ``train`` phase's,
     the loader's wait per step, the hooks' host seconds, the host decode
-    images/s at 0 and 2 workers.
+    images/s at 0 and 2 workers;
+15. yolo_reference: ``cli/train_yolo.py``'s train step twice (accumulation
+    2, the EMA) and its eval step for YOLOv11-n at 64^2, batch 4, fp32, on
+    the card against the CPU from the same weights and batches, within the
+    bounds of ``tests/test_torch_train_yolo.py``; K1 once in the eval step;
+16. train_yolo: ``cli/train_yolo.py::main`` at full width (YOLOv11-n, fp32,
+    batch 32 of 640^2, accumulation 2) from 64 train and 32 val PNGs
+    written by ``tools/make_dataset.py``, 11 epochs (the first with the
+    mosaic), then ``--test`` on ``best`` (or, where matplotlib is missing,
+    the ``evaluate`` it calls): ``step.csv``, ``best`` and ``last``, K1 once
+    per val batch; ms per step from disk and the loader's wait with and
+    without the mosaic, the mosaic dataset's host images/s at 0 and 2
+    workers, the mAP hook's seconds, the peak memory;
+17. eval_verification: ``cli/eval_verification.py::main`` with IR-50 over
+    64 pairs of 112^2 PNG crops: finite metrics, images/s.
 
 Every phase prints one JSON line with the card's name and power limit. The
 last two lines are the ``kernels`` summary and ``{"ok": true, ...}``. The
@@ -1424,6 +1438,391 @@ def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640
     return first_counts
 
 
+# ------------------------------------------------------- the YOLO trainer ---
+
+YOLO_OPTIM = dict(optimizer="sgd", learning_rate=0.1, weight_decay=5e-4, schedule="linear",
+                  min_lr=1e-4, warmup_steps=100, total_steps=200, accumulate=2)
+
+
+def yolo_batches(n: int, batch: int, size: int, seed: int) -> list:
+    """Synthetic detection batches (``data/synthetic.py``, numpy seed) with
+    uint8 images, the loaders' dtype."""
+    import numpy as np
+
+    from prpe_tpu_torch.core.config import DetectionConfig
+    from prpe_tpu_torch.data import synthetic
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = synthetic.detection_batch(rng, batch, size, DetectionConfig().max_gt)
+        b["image"] = np.round(b["image"] * 255).astype(np.uint8)
+        out.append(b)
+    return out
+
+
+def matched_share(boxes_a, boxes_b, thr: float = 0.99) -> float:
+    """Share of ``boxes_a`` (N, 4) xyxy with a partner in ``boxes_b`` of IoU
+    at least ``thr``, pairing the best overlaps first (the greedy matcher of
+    ``tools/check_cascade_numerics.py:133``)."""
+    from prpe_tpu_torch.eval.map import box_iou_matrix
+
+    if len(boxes_a) == 0:
+        return 1.0
+    iou = box_iou_matrix(boxes_a, boxes_b)
+    used, n = set(), 0
+    for i in iou.max(axis=1).argsort()[::-1] if iou.size else []:
+        for j in iou[i].argsort()[::-1]:
+            if iou[i, j] < thr:
+                break
+            if j not in used:
+                used.add(j)
+                n += 1
+                break
+    return n / len(boxes_a)
+
+
+def phase_yolo_reference(device, size: int = 64, batch: int = 4) -> dict:
+    """``cli/train_yolo.py``'s ``train_step`` twice (accumulation 2: the
+    first call holds the update back; the update count and the EMA advance
+    on both) and its ``eval_step`` on the EMA with the live statistics, for
+    YOLOv11-n at ``size``^2, batch ``batch``, fp32, on the card against the
+    CPU from the same weights (drawn on the CPU) and batches. The bounds of
+    ``tests/test_torch_train_yolo.py``: losses within 1e-4 of their
+    magnitude (at least 1), running statistics within 1e-3, each parameter's
+    and EMA entry's change within 5e-2 of the CPU's largest change of that
+    tensor plus 1e-4 of the model's plus two fp32 ulps of the tensor's
+    largest entry; every CPU detection matched by a card detection at IoU
+    0.99, scores within 1e-4. The train steps launch no kernel; the eval
+    step launches K1 once. Returns the card's launches."""
+    import numpy as np
+
+    from prpe_tpu_torch.cli import train_yolo
+    from prpe_tpu_torch.core.config import DetectionConfig, OptimConfig
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.train.optim import build_optimizer
+
+    cpu = torch.device("cpu")
+    det = DetectionConfig(num_classes=1, image_size=size)
+    # the weights drawn once on the CPU: a generator draws differently on the card
+    models = {where: train_yolo.build_model(1, "n", dev)
+              for where, dev in (("cpu", cpu), ("card", device))}
+    models["card"].load_state_dict(models["cpu"].state_dict())
+    start = {k: t.clone() for k, t in models["cpu"].state_dict().items()}
+    names = [n for n, _ in models["cpu"].named_parameters()]
+    steps, eval_batch = yolo_batches(2, batch, size, seed=5), yolo_batches(1, batch, size, 6)[0]
+    out, counts = {}, {}
+    for where, model in models.items():
+        tx = build_optimizer(OptimConfig(**YOLO_OPTIM))
+        state = train_yolo.create_state(model, tx)
+        reset_launches()
+        metrics = [{k: float(v) for k, v in train_yolo.train_step(model, tx, state, b, det)
+                    .items()} for b in steps]
+        _sync(device)
+        counts[where] = {"train": {k: v for k, v in launches.items() if v}}
+        reset_launches()
+        dets = train_yolo.eval_step(model, state.ema_params, eval_batch, det)
+        _sync(device)
+        counts[where]["eval"] = {k: v for k, v in launches.items() if v}
+        out[where] = dict(metrics=metrics, count=state.updates_count,
+                          sd={k: t.cpu() for k, t in model.state_dict().items()},
+                          ema={k: t.cpu() for k, t in state.ema_params.items()},
+                          dets=[t.cpu().numpy() for t in dets])
+    got, want = out["card"], out["cpu"]
+    if counts["card"] != {"train": {}, "eval": {"nms": 1}}:
+        fail(f"yolo_reference: the card launched {counts['card']}, expected K1 once in eval")
+    if not got["count"] == want["count"] == 2:
+        fail(f"yolo_reference: update counts {got['count']}, {want['count']}")
+    metric_err = max(abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+                     for g, w in zip(got["metrics"], want["metrics"]) for k in w)
+    if not metric_err <= 1e-4:
+        fail(f"yolo_reference: losses {got['metrics']} against the CPU's {want['metrics']}")
+    stat_err = max(float((got["sd"][k] - want["sd"][k]).abs().max())
+                   / max(1.0, float(want["sd"][k].abs().max()))
+                   for k in want["sd"] if k not in names)
+    if not stat_err <= 1e-3:
+        fail(f"yolo_reference: running statistics off by {stat_err}")
+    eps = float(torch.finfo(torch.float32).eps)
+    share = 0.0
+    for key, tensors in (("sd", names), ("ema", names)):
+        scale = max(float((want[key][n] - start[n]).abs().max()) for n in tensors)
+        for n in tensors:
+            dw, dg = want[key][n] - start[n], got[key][n] - start[n]
+            bound = (5e-2 * float(dw.abs().max()) + 1e-4 * scale
+                     + 2 * eps * float(start[n].abs().max()))
+            e = float((dg - dw).abs().max())
+            if not e <= bound:
+                fail(f"yolo_reference: {key} {n} moved {e} off the CPU's change (bound {bound})")
+            share = max(share, e / bound)
+    gb, gs, _, gv = got["dets"]
+    wb, ws, _, wv = want["dets"]
+    if gv.sum(-1).tolist() != wv.sum(-1).tolist() or not wv.any():
+        fail(f"yolo_reference: {gv.sum(-1)} valid detections against the CPU's {wv.sum(-1)}")
+    matched = min(matched_share(wb[i][wv[i]], gb[i][gv[i]]) for i in range(len(wv)))
+    score_err = float(np.abs(np.sort(gs[gv]) - np.sort(ws[wv])).max())
+    if matched < 1.0 or score_err > 1e-4:
+        fail(f"yolo_reference: {matched} of the CPU detections matched, scores off {score_err}")
+    emit("yolo_reference", image_size=size, batch=batch, accumulate=2,
+         losses=[m["loss"] for m in got["metrics"]],
+         losses_cpu=[m["loss"] for m in want["metrics"]], max_loss_rel_err=metric_err,
+         max_stat_rel_err=stat_err, max_change_share_of_bound=share,
+         detections=int(gv.sum()), max_score_err=score_err, launches=counts["card"])
+    return counts["card"]
+
+
+def mosaic_rates(root: str, size: int, batch: int, workers=(0, 2)) -> dict:
+    """Host images/s of ``YoloMosaicDataset`` alone (decode, mosaic, affine,
+    MixUp, HSV, flip, collate; no card), over one epoch of ``loader.host``,
+    with the mosaic and without it, at each worker count; the native
+    library already built."""
+    from prpe_tpu_torch import native
+    from prpe_tpu_torch.core.config import DetectionConfig
+    from prpe_tpu_torch.data import pipeline
+    from prpe_tpu_torch.data.detection import YoloMosaicDataset, YoloTxtDataset
+
+    native.get_lib()
+    rates = {}
+    for mosaic in (1.0, 0.0):
+        for w in workers:
+            ds = YoloMosaicDataset(YoloTxtDataset(root, "train", size, DetectionConfig().max_gt),
+                                   mosaic_prob=mosaic)
+            loader = pipeline.make_epoch_loader(ds, batch, num_workers=w, prefetch=0)
+            try:
+                t0 = time.perf_counter()
+                n = sum(len(b["image"]) for b in loader.host(0))
+                rates[f"{'mosaic' if mosaic else 'plain'}_workers{w}"] = (
+                    n / (time.perf_counter() - t0))
+            finally:
+                loader.close()
+    return rates
+
+
+def phase_train_yolo(device, n_train: int = 64, n_val: int = 32, size: int = 640,
+                     batch: int = 32, epochs: int = 11) -> dict:
+    """``cli/train_yolo.py::main`` end to end at full width: YOLOv11-n, fp32,
+    ``batch`` images of ``size``^2 (accumulation round(64 / batch)), from a
+    PNG dataset written by ``tools/make_dataset.py`` (``n_train`` train and
+    ``n_val`` val images) into a temporary directory, for ``epochs`` epochs:
+    epoch 0 with the mosaic, the last 10 without it. Then ``--test`` on
+    ``best`` where matplotlib imports; where it does not (decided before the
+    run), the same ``evaluate`` that ``--test`` calls on ``best``, and the
+    line says the plots were not made. Every launch counter at zero before
+    the training run and before the test. Fails unless each run returns 0,
+    ``step.csv`` has a finite row per epoch, ``best`` and ``last`` exist,
+    K1 ran once per val batch (``epochs`` x val batches, then val batches),
+    and the test's metrics are finite. Prints ms a train step from disk and
+    the loader's wait a step for the mosaic epoch and the others, the host
+    images/s of the mosaic dataset alone (with and without the mosaic, at 0
+    and 2 workers), the mAP hook's seconds a val pass, the peak memory and
+    the launches. Returns the launches of both runs summed."""
+    import csv
+    import importlib.util
+    import io
+    import pathlib
+    import shutil
+    import tempfile
+
+    from prpe_tpu_torch.cli import train_yolo
+    from prpe_tpu_torch.eval import map as map_eval
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.tools.make_dataset import make_detection_split
+
+    tmp = tempfile.mkdtemp(prefix="prpe_train_yolo_")
+    real_build, real_val, real_hook = (train_yolo.build_loaders, train_yolo.val_outputs,
+                                       map_eval.detection_eval_hook)
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "det")
+        make_detection_split(pathlib.Path(data), "train", n_train, size, seed=0)
+        make_detection_split(pathlib.Path(data), "val", n_val, size, seed=1)
+        dataset_s = time.perf_counter() - t0
+        rates = mosaic_rates(data, size, batch)
+
+        epoch_log, hook_s, captured = [], [], {}
+
+        def build(args, det_cfg, dev):
+            train_ds, train_loader, val_loader, steps = real_build(args, det_cfg, dev)
+
+            def epoch_fn(epoch):
+                epoch_log.append({"epoch": epoch, "t0": time.perf_counter(),
+                                  "wait0": train_loader.stats["wait_s"],
+                                  "batches0": train_loader.stats["batches"],
+                                  "mosaic": getattr(train_ds, "mosaic_prob", None)})
+                return train_loader(epoch)
+
+            captured.update(train=train_loader, val=val_loader)
+            return train_ds, epoch_fn, val_loader, steps
+
+        def val(*a, **k):
+            if epoch_log and "t1" not in epoch_log[-1]:
+                e = epoch_log[-1]
+                e.update(t1=time.perf_counter(),
+                         wait=captured["train"].stats["wait_s"] - e["wait0"],
+                         steps=captured["train"].stats["batches"] - e["batches0"])
+            return real_val(*a, **k)
+
+        def hook(image_size):
+            inner = real_hook(image_size)
+
+            def run(outputs):
+                t = time.perf_counter()
+                try:
+                    return inner(outputs)
+                finally:
+                    hook_s.append(time.perf_counter() - t)
+            return run
+
+        out = os.path.join(tmp, "out")
+        argv = ["--device", str(device), "--data-dir", data, "--input-size", str(size),
+                "--batch-size", str(batch), "--epochs", str(epochs), "--output-dir", out]
+        train_yolo.build_loaders, train_yolo.val_outputs = build, val
+        map_eval.detection_eval_hook = hook
+        stdout = io.StringIO()
+        cuda = device.type == "cuda"
+        try:
+            reset_launches()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                rc = train_yolo.main(argv)
+            _sync(device)
+            run_s = time.perf_counter() - t0
+        finally:
+            train_yolo.build_loaders, train_yolo.val_outputs = real_build, real_val
+            map_eval.detection_eval_hook = real_hook
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if cuda else None
+        train_counts = {k: v for k, v in launches.items() if v}
+        if rc != 0:
+            fail("train_yolo: the training run did not return 0")
+        val_batches = captured["val"].steps_per_epoch
+        if train_counts != {"nms": epochs * val_batches} or val_batches < 1:
+            fail(f"train_yolo: the training run launched {train_counts}, expected K1 "
+                 f"{epochs} x {val_batches}")
+        with open(os.path.join(out, "step.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if len(rows) != epochs or not all(float(v) == float(v) and abs(float(v)) != float("inf")
+                                          for r in rows for v in r.values()):
+            fail(f"train_yolo: step.csv holds {rows}")
+        if not all(os.path.exists(os.path.join(out, f"{n}.pt")) for n in ("best", "last")):
+            fail(f"train_yolo: no best.pt or last.pt in {sorted(os.listdir(out))}")
+        want_mosaic = [1.0 if e < max(0, epochs - 10) else 0.0 for e in range(epochs)]
+        if [e["mosaic"] for e in epoch_log] != want_mosaic:
+            fail(f"train_yolo: mosaic by epoch {[e['mosaic'] for e in epoch_log]}")
+
+        # --test on best: the CLI where matplotlib imports, else its evaluate
+        plots = importlib.util.find_spec("matplotlib") is not None
+        reset_launches()
+        t0 = time.perf_counter()
+        test_out = io.StringIO()
+        if plots:
+            with contextlib.redirect_stdout(test_out):
+                rc = train_yolo.main(argv + ["--test", "--class-names", "person"])
+            if rc != 0:
+                fail("train_yolo: --test did not return 0")
+            pngs = sorted(f for f in os.listdir(out) if f.endswith("_curve.png"))
+            if len(pngs) != 4:
+                fail(f"train_yolo: --test wrote {pngs}")
+            table = test_out.getvalue().splitlines()[-5].split()
+            test_metrics = dict(zip(("precision", "recall", "mAP50", "mAP50-95"),
+                                    map(float, table)))
+        else:
+            from prpe_tpu_torch.core.config import DetectionConfig
+            from prpe_tpu_torch.train.checkpoint import load_model
+
+            args = train_yolo.parse_args(argv)
+            det_cfg = DetectionConfig(num_classes=1, image_size=size)
+            model = train_yolo.build_model(1, "n", device)
+            model.load_state_dict(load_model(os.path.join(out, "best")))
+            _, _, val_loader, _ = train_yolo.build_loaders(args, det_cfg, device)
+            test_metrics, curves = train_yolo.evaluate(model, dict(model.named_parameters()),
+                                                       val_loader, det_cfg, size)
+            if curves is None:
+                fail("train_yolo: the test evaluation had no curve data")
+            pngs = "not made: matplotlib is not installed on this host"
+        _sync(device)
+        test_s = time.perf_counter() - t0
+        test_counts = {k: v for k, v in launches.items() if v}
+        if test_counts != {"nms": val_batches}:
+            fail(f"train_yolo: the test launched {test_counts}, expected K1 {val_batches}")
+        if not all(v == v for v in test_metrics.values()):
+            fail(f"train_yolo: test metrics {test_metrics}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def per_step(mosaic):
+        epochs_ = [e for e in epoch_log if e["mosaic"] == mosaic]
+        steps = sum(e["steps"] for e in epochs_)
+        if not steps:
+            return None
+        return dict(epochs=len(epochs_), steps=steps,
+                    ms_per_step=sum(e["t1"] - e["t0"] for e in epochs_) * 1e3 / steps,
+                    loader_wait_ms_per_step=sum(e["wait"] for e in epochs_) * 1e3 / steps)
+
+    emit("train_yolo", variant="n", image_size=size, batch=batch, accumulate=round(64 / batch),
+         dtype="float32", train_images=n_train, val_images=n_val, epochs=epochs,
+         dataset_s=dataset_s, startup_line=stdout.getvalue().splitlines()[0], run_s=run_s,
+         mosaic_epochs=per_step(1.0), plain_epochs=per_step(0.0),
+         epoch_ms_per_step=[(e["t1"] - e["t0"]) * 1e3 / e["steps"] for e in epoch_log],
+         host_images_per_s=rates, map_hook_s_per_val_pass=hook_s,
+         peak_mem_gib=peak, launches_train=train_counts, launches_test=test_counts,
+         last_row={k: float(v) for k, v in rows[-1].items()}, test_s=test_s,
+         test_metrics=test_metrics, plots=pngs)
+    return {"nms": train_counts["nms"] + test_counts["nms"]}
+
+
+def phase_eval_verification(device, pairs: int = 64, arch: str = "ir_50",
+                            batch: int = 64, runs: int = 2) -> None:
+    """``cli/eval_verification.py::main`` on the card: ``pairs`` pairs of
+    112^2 face crops as PNG bytes (the port's writer; matched pairs near
+    copies, numpy seed 0) in an npz in a temporary directory, ``arch``
+    weights from seed 0, ``runs`` times. Fails unless it returns 0 and its
+    metrics are finite. Prints images/s a run (decoding, the model's build
+    and the padding included) and the metrics."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from prpe_tpu_torch.cli import eval_verification
+    from prpe_tpu_torch.data.image import encode_png
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    rng = np.random.default_rng(0)
+    imgs, issame = [], []
+    for p in range(pairs):
+        a = rng.integers(0, 256, (112, 112, 3), dtype=np.uint8)
+        b = (np.clip(a.astype(int) + rng.integers(-20, 20, a.shape), 0, 255).astype(np.uint8)
+             if p % 2 == 0 else rng.integers(0, 256, a.shape, dtype=np.uint8))
+        imgs += [encode_png(a), encode_png(b)]
+        issame.append(p % 2 == 0)
+    tmp = tempfile.mkdtemp(prefix="prpe_eval_verification_")
+    try:
+        path = os.path.join(tmp, "pairs.npz")
+        np.savez(path, jpegs=np.array(imgs, dtype=object), issame=np.asarray(issame))
+        rates, metrics = [], None
+        reset_launches()
+        for _ in range(runs):
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = eval_verification.main([path, "--device", str(device), "--arch", arch,
+                                             "--batch-size", str(batch)])
+            _sync(device)
+            rates.append(2 * pairs / (time.perf_counter() - t0))
+            if rc != 0:
+                fail("eval_verification: the CLI did not return 0")
+            metrics = json.loads(out.getvalue().splitlines()[-1])
+            if not all(v == v and abs(v) != float("inf") for v in metrics.values()):
+                fail(f"eval_verification: metrics {metrics}")
+        counts = {k: v for k, v in launches.items() if v}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("eval_verification", arch=arch, pairs=pairs, batch=batch, images_per_s=rates,
+         metrics=metrics, launches=counts)
+
+
 def report_build(logs) -> None:
     """Print each kernel's ``ptxas`` lines (entry, registers, spills, wgmma
     notes) and fail on a spill or a compiler error."""
@@ -1517,6 +1916,9 @@ def main() -> int:
     train_counts = phase_train(device)
     cli_counts = phase_train_cli(device)
     data_counts = phase_train_data(device, train_ms=train_counts["ms"])
+    phase_yolo_reference(device)
+    yolo_counts = phase_train_yolo(device)
+    phase_eval_verification(device)
 
     src, pallas = "prpe_tpu_torch/csrc/", "prpe_tpu/ops/pallas/"
     row = lambda r: {k: r[k] for k in ROW_KEYS}  # noqa: E731
@@ -1536,7 +1938,7 @@ def main() -> int:
              launches_f32=counts_f32["pallas_packed"]["nms"],
              launches_detection_eval_step=train_counts["eval"]["person_detection"]["nms"],
              launches_train_cli=cli_counts["nms"], launches_train_data=data_counts["nms"],
-             **row(nms_rows[0]),
+             launches_train_yolo=yolo_counts["nms"], **row(nms_rows[0]),
              **suffixed(nms_rows[1], "_k1024")),
         dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
              replaces=pallas + "attention_kernel.py:92",

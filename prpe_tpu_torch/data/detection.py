@@ -15,9 +15,10 @@ Re-derivation of the reference's detection data layer
     replacement for the reference's variable-length concat collate
     (datamodule.py:195-226)
 
-The mosaic view (``YoloMosaicDataset``) comes with the augmentation module.
-Samples are numpy only (``native`` resizes), so forked decode workers run
-no torch.
+``YoloMosaicDataset`` is the standalone YOLO trainer's train-time view
+(mosaic, affine, MixUp, the visual transforms, HSV, flip;
+``data/augment.py``). Samples are numpy only (``native`` resizes, warps and
+jitters), so forked decode workers run no torch.
 """
 
 from __future__ import annotations
@@ -119,3 +120,76 @@ class YoloTxtDataset:
                 labels[:, 1] = 1.0 - labels[:, 1]
 
         return self.pack(img, labels)
+
+
+class YoloMosaicDataset:
+    """Mosaic-4 + MixUp + HSV augmented view of a ``YoloTxtDataset``: the
+    standalone YOLO trainer's train-time pipeline
+    (reference: training/yolopt/dataset.py:59-103 ``__getitem__`` flow).
+
+    ``set_mosaic(0.0)`` turns the mosaic off (the reference does for the
+    final 10 epochs, training/yolopt/main.py:76-78). Forked decode workers
+    (``data/loader.py``) reseed both this view's ``_rng`` and its
+    ``base._rng``; a worker pool forks the view as it is, so a pool made
+    before ``set_mosaic`` keeps the old probability.
+    """
+
+    def __init__(self, base: YoloTxtDataset, mosaic_prob: float = 1.0,
+                 mixup_prob: float = 0.15, hsv: bool = True, seed: int = 0,
+                 degrees: float = 0.0, translate: float = 0.1,
+                 scale: float = 0.5, shear: float = 0.0,
+                 visual_prob: float = 0.01):
+        self.base = base
+        self.mosaic_prob = mosaic_prob
+        self.mixup_prob = mixup_prob
+        self.hsv = hsv
+        self.affine = dict(degrees=degrees, translate=translate, scale=scale, shear=shear)
+        self.visual_prob = visual_prob
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.base)
+
+    def set_mosaic(self, prob: float):
+        self.mosaic_prob = prob
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        from prpe_tpu_torch.data.augment import (
+            hsv_augment, mixup, mosaic4, random_perspective, random_visual,
+        )
+
+        rng = self._rng
+        size = self.base.image_size
+        raw = self.base.raw
+
+        if rng.random() < self.mosaic_prob:
+            idxs = [idx] + list(rng.integers(0, len(self.base), 3))
+            img, labels = mosaic4([raw(i) for i in idxs], size, rng)
+            # the affine follows the mosaic, as in the reference's
+            # load_mosaic (training/yolopt/dataset.py:174-176)
+            img, labels = random_perspective(img, labels, rng, **self.affine)
+            if rng.random() < self.mixup_prob:
+                idxs2 = list(rng.integers(0, len(self.base), 4))
+                img2, labels2 = mosaic4([raw(i) for i in idxs2], size, rng)
+                img2, labels2 = random_perspective(img2, labels2, rng, **self.affine)
+                img, labels = mixup(img, labels, img2, labels2, rng)
+        else:
+            # without the mosaic the affine still follows the resize
+            # (reference: dataset.py:44-55)
+            img, labels = raw(idx)
+            img = native.resize_bilinear_u8(img, size, size)
+            img, labels = random_perspective(img, labels, rng, **self.affine)
+        # once on the final image, in the reference's order: visuals, HSV,
+        # flip (dataset.py:63-78)
+        if self.visual_prob > 0:
+            img = random_visual(img, rng, self.visual_prob)
+        if self.hsv:
+            img = hsv_augment(img, rng)
+        if rng.random() < 0.5:
+            img = np.ascontiguousarray(img[:, ::-1])
+            if labels.size:
+                labels = labels.copy()
+                labels[:, 1] = 1.0 - labels[:, 1]
+        labels = sanitize_boxes(labels.reshape(-1, 5))
+        # raw uint8 out; the /255 happens on the device (apply_image_norm "unit")
+        return self.base.pack(img, labels)

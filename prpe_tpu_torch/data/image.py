@@ -161,22 +161,29 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return np.ascontiguousarray(px if h < 0 else px[::-1])  # positive height: bottom-up
 
 
-def load_image(path) -> np.ndarray:
-    """Load an RGB uint8 HWC image: PNG and BMP here, anything else through
-    PIL (which a host may lack: then a ``RuntimeError`` naming the file)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Encoded image bytes -> RGB uint8 HWC: PNG and BMP here, anything else
+    through PIL (which a host may lack: then a ``RuntimeError`` naming
+    ``name``)."""
     for magic, decode in ((PNG_MAGIC, decode_png), (b"BM", decode_bmp)):
         if data.startswith(magic):
             try:
-                return decode(data, str(path))
+                return decode(data, name)
             except (ValueError, struct.error, zlib.error) as e:  # a damaged file
-                raise RuntimeError(f"{path}: {e}") from e
+                raise RuntimeError(f"{name}: {e}") from e
     if not _HAVE_PIL:
-        raise RuntimeError(f"{path}: only PNG and BMP decode without PIL, and PIL is not "
+        raise RuntimeError(f"{name}: only PNG and BMP decode without PIL, and PIL is not "
                            "installed")
-    with Image.open(path) as im:
+    import io
+
+    with Image.open(io.BytesIO(data)) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def load_image(path) -> np.ndarray:
+    """Load an RGB uint8 HWC image file (``decode_image``)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), str(path))
 
 
 def resize_image(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:

@@ -5,7 +5,8 @@
   state, the EMA and the counters, with ``epoch`` and ``last_task`` in
   ``meta.json``; the newest ``keep`` are kept.
 * A slim ``best_<task>`` (the model's state dict only) whenever the task's
-  monitor improves.
+  monitor improves; ``save_model`` / ``load_model`` write and read that
+  format anywhere (the YOLO trainer's ``last`` and ``best``).
 
 Each file is written with ``torch.save`` to a temporary name in the same
 directory and renamed over its slot with ``os.replace``, so a kill during a
@@ -50,6 +51,39 @@ def _to_device(obj, device):
     return obj
 
 
+def _atomic_write(path: Path, write) -> None:
+    """``write(tmp_path)``, then rename over ``path``; stale leftovers of
+    the same slot are removed first."""
+    for p in path.parent.glob(path.name + ".tmp*"):
+        p.unlink(missing_ok=True)
+    tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+    write(tmp)
+    os.replace(tmp, path)
+
+
+def save_model(path, state_dict: Dict[str, torch.Tensor]) -> str:
+    """A slim checkpoint, ``{"model": state_dict}`` on the CPU (the format of
+    ``best_*``), written to a temporary name and renamed over ``path``
+    (``.pt`` added when it has no suffix)."""
+    path = Path(path).absolute()
+    if not path.suffix:
+        path = path.with_name(path.name + _SUFFIX)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    _atomic_write(path, lambda tmp: torch.save({"model": _to_cpu(state_dict)}, tmp))
+    return str(path)
+
+
+def load_model(path) -> Dict[str, torch.Tensor]:
+    """The model state dict of a checkpoint file: a slim or combined
+    checkpoint (its ``model``) or a bare state dict; ``path`` may omit
+    ``.pt``."""
+    path = Path(path)
+    if not path.exists() and not path.suffix:
+        path = path.with_name(path.name + _SUFFIX)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return payload["model"] if "model" in payload else payload
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = Path(directory).absolute()
@@ -58,13 +92,7 @@ class CheckpointManager:
         self._meta_path = self.dir / "meta.json"
 
     def _write(self, path: Path, write) -> None:
-        """``write(tmp_path)``, then rename over ``path``; stale leftovers of
-        the same slot are removed first."""
-        for p in self.dir.glob(path.name + ".tmp*"):
-            p.unlink(missing_ok=True)
-        tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
-        write(tmp)
-        os.replace(tmp, path)
+        _atomic_write(path, write)
 
     def _save_slot(self, name: str, payload) -> Path:
         path = self.dir / (name + _SUFFIX)

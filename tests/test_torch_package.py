@@ -11,11 +11,15 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "prpe_tpu")
+# absent on the card's host: imported only inside the functions that need them
+OPTIONAL = ("matplotlib", "PIL")
 
 _GUARDED_RUN = """
 import importlib, pkgutil, sys
-for name in {forbidden!r}:
+for name in {forbidden!r} + {optional!r}:
     sys.modules[name] = None  # any import of it now raises ImportError
+import torch
+torch.set_num_threads(1)  # the suite runs several test processes on the host's cores
 import prpe_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(prpe_tpu_torch.__path__, "prpe_tpu_torch.")]
 for m in mods:
@@ -71,10 +75,31 @@ with tempfile.TemporaryDirectory() as d:
     batch = pipeline.default_collate([pose[0], pose[1]])
     hm = pose_eval_hook(24)([((batch["keypoints"][:, 0, :, :2], np.ones((2, 17))), batch)])
     assert hm["kpt_AP"] > 0.99, hm
+from prpe_tpu_torch.data.detection import YoloMosaicDataset
+from prpe_tpu_torch.eval.map import evaluate_detections
+from prpe_tpu_torch.eval.plots import save_detection_curves
+with tempfile.TemporaryDirectory() as d:
+    make_dataset(d, 4, 2, det_size=32, pose_size=32, face_size=16, identities=2, per_identity=3)
+    mosaic = YoloMosaicDataset(YoloTxtDataset(d + "/person", "train", 24, 4))
+    loader = pipeline.make_epoch_loader(mosaic, 2, num_workers=1)
+    assert [b["image"].shape for b in loader(0)] == [(2, 24, 24, 3)] * 2
+    loader.close()
+    box = np.array([[0.0, 0.0, 8.0, 8.0]], np.float32)
+    _, curves = evaluate_detections([(box, np.ones(1, np.float32), np.zeros(1), box, np.zeros(1))],
+                                    return_curves=True)
+    try:
+        save_detection_curves(curves, d + "/plots")
+        raise AssertionError("plots without matplotlib")
+    except ImportError as e:
+        assert "matplotlib" in str(e) and "PR_curve.png" in str(e) and "R_curve.png" in str(e)
+from prpe_tpu_torch.cli import train_yolo
+with tempfile.TemporaryDirectory() as d:
+    assert train_yolo.main(["--device", "cpu", "--synthetic", "--input-size", "32",
+                            "--batch-size", "2", "--epochs", "1", "--output-dir", d]) == 0
 print("imported", len(mods), "modules")
 """
 # the modules of the combined model, the serving CLIs, the training path,
-# the eval hooks and the data layer
+# the eval hooks, the data layer, the YOLO trainer and the dataset CLIs
 NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.nn.adapters", "prpe_tpu_torch.ops.margin",
                "prpe_tpu_torch.data.image", "prpe_tpu_torch.cli.infer",
@@ -90,12 +115,17 @@ NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.native", "prpe_tpu_torch.data.detection",
                "prpe_tpu_torch.data.faces", "prpe_tpu_torch.data.pose",
                "prpe_tpu_torch.data.loader", "prpe_tpu_torch.data.pipeline",
-               "prpe_tpu_torch.tools.make_dataset")
+               "prpe_tpu_torch.tools.make_dataset",
+               "prpe_tpu_torch.data.augment", "prpe_tpu_torch.utils.profiling",
+               "prpe_tpu_torch.eval.plots", "prpe_tpu_torch.cli.train_yolo",
+               "prpe_tpu_torch.cli.convert_coco", "prpe_tpu_torch.cli.convert_ms1m",
+               "prpe_tpu_torch.cli.eval_verification", "prpe_tpu_torch.cli.download_coco",
+               "prpe_tpu_torch.cli.download_models")
 
 
 def test_port_imports_and_runs_without_jax():
     proc = subprocess.run(
-        [sys.executable, "-c", _GUARDED_RUN.format(forbidden=FORBIDDEN,
+        [sys.executable, "-c", _GUARDED_RUN.format(forbidden=FORBIDDEN, optional=OPTIONAL,
                                                    new_modules=NEW_MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -116,6 +146,21 @@ def test_no_forbidden_import_statement(path):
             names = [node.module]
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in (ROOT / "prpe_tpu_torch").rglob("*.py")))
+def test_no_unguarded_module_level_optional_import(path):
+    """matplotlib and PIL are imported inside functions (or, for PIL, in a
+    module-level ``try``), so every module imports on a host without them."""
+    for node in ast.parse((ROOT / path).read_text()).body:
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            assert name.split(".")[0] not in OPTIONAL, f"{path} imports {name} at module level"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -145,6 +190,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--preset", "tiny"])
+    from prpe_tpu_torch.cli import eval_verification, train_yolo
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_yolo.main(["--synthetic"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_verification.main(["pairs.npz"])
 
 
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
