@@ -76,9 +76,10 @@ exit on the first fault:
     its launches counted (K2 12 per pose step, K1 once per detection
     validation batch) and its files checked (the slim ``best_*`` of both
     detection tasks, from the mAP hook, and of face recognition);
-14. train_data: ``cli/train.py::main`` from datasets on disk, written by
-    ``tools/make_dataset.py`` (detection and pose 64 train and 32 val PNGs
-    of 640^2, 16 identities x 20 face crops of 112^2), the full preset at
+14. train_data: ``cli/train.py::main`` from datasets on disk, written once
+    by ``tools/make_dataset.py`` for phases 14, 15 and 17 (detection and
+    pose 64 train and 32 val PNGs of 640^2, 16 identities x 20 face crops
+    of 112^2), the full preset at
     batch 32 for an epoch, once inline and once with 2 decode workers:
     every metric finite, ``val/mAP50-95`` on both detection tasks,
     ``val/ver_acc``, ``val/kpt_AP``, the detection ``best_*`` checkpoints,
@@ -86,11 +87,30 @@ exit on the first fault:
     per pose val batch; ms per step from disk beside the ``train`` phase's,
     the loader's wait per step, the hooks' host seconds, the host decode
     images/s at 0 and 2 workers;
-15. yolo_reference: ``cli/train_yolo.py``'s train step twice (accumulation
+15. device_resident: ``cli/train.py --device-resident`` on the same
+    datasets for 2 epochs, frozen and then ``--device-resident-refresh``:
+    the staged MiB, ms a step per epoch beside ``train_data``'s from disk
+    and ``train``'s on a reused batch, ``fresh_epochs`` / ``stale_epochs``,
+    K1 and K2 per epoch as in ``train_data``;
+16. parallel_reference: one SGD step per task of the tiny fp32 combined
+    model on gloo ranks sharing the card (NCCL refuses two ranks on one
+    GPU) at (dp, mp) = (2, 1), (1, 2) and (2, 2), against the
+    single-process step on the card within ``train_reference``'s bounds;
+    every rank of a mesh bit-equal (parameters, BatchNorm statistics,
+    margin buffers), K2 once per ViT block in each rank's pose step;
+17. parallel: ``cli/train.py`` at the full preset, bf16, global batch 32
+    of 640^2, branch scope, 2 steps and one val batch a task, over NCCL at
+    world 1 (``--coordinator``, a wiring check, not a multi-GPU number) and
+    two gloo ranks at dp = 2 and at mp = 2 (``face_kernel`` split by class):
+    ms a step per task, peak GiB a rank, a profile of rank 0's first pose
+    step (the collectives' host and device ms), launches per rank (K1 2,
+    K2 48), the ranks' replicated parameters bit-equal, one file a save
+    with the full (512, 85742) ``face_kernel``;
+18. yolo_reference: ``cli/train_yolo.py``'s train step twice (accumulation
     2, the EMA) and its eval step for YOLOv11-n at 64^2, batch 4, fp32, on
     the card against the CPU from the same weights and batches, within the
     bounds of ``tests/test_torch_train_yolo.py``; K1 once in the eval step;
-16. train_yolo: ``cli/train_yolo.py::main`` at full width (YOLOv11-n, fp32,
+19. train_yolo: ``cli/train_yolo.py::main`` at full width (YOLOv11-n, fp32,
     batch 32 of 640^2, accumulation 2) from 64 train and 32 val PNGs
     written by ``tools/make_dataset.py``, 11 epochs (the first with the
     mosaic), then ``--test`` on ``best`` (or, where matplotlib is missing,
@@ -98,10 +118,12 @@ exit on the first fault:
     per val batch; ms per step from disk and the loader's wait with and
     without the mosaic, the mosaic dataset's host images/s at 0 and 2
     workers, the mAP hook's seconds, the peak memory;
-17. eval_verification: ``cli/eval_verification.py::main`` with IR-50 over
+20. eval_verification: ``cli/eval_verification.py::main`` with IR-50 over
     64 pairs of 112^2 PNG crops: finite metrics, images/s.
 
-Every phase prints one JSON line with the card's name and power limit. The
+Phases 16 (its ranks), the odd shapes of 1, 2, 6, 11 and 18 run together
+after the kernel rows: they time nothing. Every phase prints one JSON line
+with the card's name and power limit. The
 last two lines are the ``kernels`` summary and ``{"ok": true, ...}``. The
 build fails the run if ``ptxas`` reports a spill in any kernel.
 
@@ -139,6 +161,7 @@ ATTN_MODES = {"einsum": None, "einsum_bf16sm": None, "pallas": "mhsa_bhtd",
               "pallas_packed": "mhsa", "pallas_lnfused": "ln_mhsa"}
 
 CARD = ""
+T0 = time.perf_counter()
 
 
 def fail(msg: str) -> None:
@@ -147,7 +170,9 @@ def fail(msg: str) -> None:
 
 
 def emit(phase: str, **numbers) -> None:
-    print(json.dumps({"phase": phase, **numbers, "card": CARD}), flush=True)
+    """One result line; ``t_s``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **numbers, "t_s": time.perf_counter() - T0,
+                      "card": CARD}), flush=True)
 
 
 def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -1292,7 +1317,7 @@ TASK_METRIC = {"person_detection": "val/mAP50-95", "face_detection": "val/mAP50-
 
 def decode_rate(tmp: str, batch: int, size: int, workers: int) -> dict:
     """Host images/s of each task's train loader alone (decode, resize,
-    flip, collate; no card), over one epoch of ``loader.host``, with the
+    flip, collate; no card), over one batch of ``loader.host``, with the
     native library already built."""
     from prpe_tpu_torch import native
     from prpe_tpu_torch.core.config import DetectionConfig
@@ -1311,7 +1336,8 @@ def decode_rate(tmp: str, batch: int, size: int, workers: int) -> dict:
                                                     image_size=size, augment=True)}
     rates = {}
     for task, ds in datasets.items():
-        loader = pipeline.make_epoch_loader(ds, batch, num_workers=workers, prefetch=0)
+        loader = pipeline.make_epoch_loader(ds, batch, max_samples=batch, num_workers=workers,
+                                            prefetch=0)
         try:
             t0 = time.perf_counter()
             n = sum(len(b["image"]) for b in loader.host(0))
@@ -1321,17 +1347,52 @@ def decode_rate(tmp: str, batch: int, size: int, workers: int) -> dict:
     return rates
 
 
+def make_png_datasets(root: str, n_train: int = 64, n_val: int = 32, size: int = 640,
+                      identities: int = 16, per_identity: int = 20) -> float:
+    """The four layouts of ``tools/make_dataset.py`` under ``root`` (detection
+    and pose ``n_train`` + ``n_val`` PNGs of ``size``^2 each, ``identities``
+    x ``per_identity`` face crops of 112^2); returns the seconds taken."""
+    from prpe_tpu_torch.tools.make_dataset import make_dataset
+
+    t0 = time.perf_counter()
+    make_dataset(root, n_train, n_val, det_size=size, pose_size=size, face_size=112,
+                 identities=identities, per_identity=per_identity)
+    return time.perf_counter() - t0
+
+
+def data_argv(root: str, run_dir: str, device, size: int, batch: int, *extra) -> list:
+    """``cli/train.py`` flags for the datasets under ``root``, writing into
+    ``run_dir`` (``device`` None: the CLI's default)."""
+    dev = [] if device is None else ["--device", str(device)]
+    return [*dev, "--image-size", str(size), "--batch-size", str(batch),
+            "--person-data-dir", os.path.join(root, "person"),
+            "--face-data-dir", os.path.join(root, "face"),
+            "--face-rec-data-dir", os.path.join(root, "faces"),
+            "--pose-data-dir", os.path.join(root, "pose"),
+            "--component-dir", os.path.join(root, "no_components"),
+            "--checkpoint-dir", os.path.join(run_dir, "ck"),
+            "--log-dir", os.path.join(run_dir, "log"), *extra]
+
+
+def history(run_dir: str, task: str) -> list:
+    """The rows of a run's ``<task>_history.csv`` as dicts of floats."""
+    import csv
+
+    with open(os.path.join(run_dir, "log", f"{task}_history.csv")) as f:
+        return [{k: float(v) for k, v in row.items()} for row in csv.DictReader(f)]
+
+
 def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640,
                      batch: int = 32, identities: int = 16, per_identity: int = 20,
                      full=("--preset", "full"), layers: int = 12, workers=(0, 2),
-                     train_ms=None) -> dict:
+                     train_ms=None, root=None) -> dict:
     """``cli/train.py::main`` from datasets on disk: the four layouts written
     by ``tools/make_dataset.py`` into a temporary directory (detection and
     pose ``n_train`` + ``n_val`` PNGs of ``size``^2 each; ``identities`` x
     ``per_identity`` face crops of 112^2, of which the reader's 10 % split
     must fill one val batch), then one epoch at ``batch`` per run, once for
-    each decode-worker count in ``workers``, every launch counter at zero
-    before each run. Fails on a non-finite metric, a missing ``val/mAP50-95``
+    each decode-worker count in ``workers`` (after the first, one train
+    step a task), every launch counter at zero before each run. Fails on a non-finite metric, a missing ``val/mAP50-95``
     (both detection tasks), ``val/ver_acc`` or ``val/kpt_AP``, a missing
     detection ``best_*`` checkpoint, or launches other than K1 once per
     detection val batch and K2 ``layers`` per pose train step plus
@@ -1339,23 +1400,24 @@ def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640
     from disk (beside ``train_ms``, the ``train`` phase's on a reused device
     batch), the loader's wait per step, the seconds each eval hook takes on
     the host, the metrics, and the host decode images/s of each worker
-    count. Returns the first run's launches."""
+    count. ``root``: datasets already written there (else they are written
+    into a temporary directory, deleted afterwards). Returns the first
+    run's launches and ms a step per task."""
     import csv
     import shutil
     import tempfile
 
     from prpe_tpu_torch.cli import train as cli
     from prpe_tpu_torch.ops.kernels import launches, reset_launches
-    from prpe_tpu_torch.tools.make_dataset import make_dataset
 
     tmp = tempfile.mkdtemp(prefix="prpe_train_data_")
-    runs, first_counts = {}, None
+    runs, first_counts, first_ms = {}, None, None
     try:
-        t0 = time.perf_counter()
-        make_dataset(tmp, n_train, n_val, det_size=size, pose_size=size, face_size=112,
-                     identities=identities, per_identity=per_identity)
-        dataset_s = time.perf_counter() - t0
-        decode = {w: decode_rate(tmp, batch, size, w) for w in workers}
+        dataset_s = None
+        if root is None:
+            dataset_s = make_png_datasets(tmp, n_train, n_val, size, identities, per_identity)
+            root = tmp
+        decode = {w: decode_rate(root, batch, size, w) for w in workers}
         build = cli.build_task_loaders
         for w in workers:
             captured, hook_s = {}, {}
@@ -1369,8 +1431,8 @@ def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640
                         hook_s[task] = hook_s.get(task, 0.0) + time.perf_counter() - t
                 return run
 
-            def capture(args, cfg, device=None):
-                loaders = build(args, cfg, device)
+            def capture(args, cfg, device=None, **kw):
+                loaders = build(args, cfg, device, **kw)
                 for task, tl in loaders.items():
                     if "eval_hook" in tl:
                         tl["eval_hook"] = timed(task, tl["eval_hook"])
@@ -1378,15 +1440,10 @@ def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640
                 return loaders
 
             name = f"workers{w}"
-            argv = ["--device", str(device), *full, "--image-size", str(size), "--batch-size",
-                    str(batch), "--epochs", "1", "--num-workers", str(w), "--save-every", "2",
-                    "--person-data-dir", os.path.join(tmp, "person"),
-                    "--face-data-dir", os.path.join(tmp, "face"),
-                    "--face-rec-data-dir", os.path.join(tmp, "faces"),
-                    "--pose-data-dir", os.path.join(tmp, "pose"),
-                    "--component-dir", os.path.join(tmp, "no_components"),
-                    "--checkpoint-dir", os.path.join(tmp, name, "ck"),
-                    "--log-dir", os.path.join(tmp, name, "log")]
+            # the runs after the first: one step a task
+            argv = data_argv(root, os.path.join(tmp, name), device, size, batch, *full,
+                             "--epochs", "1", "--num-workers", str(w), "--save-every", "2",
+                             *(() if w == workers[0] else ("--max-train-samples", str(batch))))
             cli.build_task_loaders = capture
             try:
                 reset_launches()
@@ -1430,12 +1487,602 @@ def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640
                         "val/kpt_AP", "val_acc")})
             runs[name] = dict(run_s=run_s, launches=counts, written=written, tasks=rows)
             first_counts = first_counts or counts
+            first_ms = first_ms or {t: r["ms_per_step"] for t, r in rows.items()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("train_data", image_size=size, batch=batch, train_images=n_train, val_images=n_val,
          face_crops=identities * per_identity, dataset_s=dataset_s,
          decode_images_per_s={f"workers{w}": r for w, r in decode.items()}, runs=runs)
-    return first_counts
+    return {"launches": first_counts, "ms": first_ms}
+
+
+# ------------------------------------------------------------- parallel ---
+
+# ranks of one process group share the one card under gloo: NCCL refuses
+# two ranks on one GPU
+COLLECTIVE_KEYS = ("nccl", "gloo", "all_reduce", "allreduce", "all_gather", "allgather",
+                   "broadcast", "c10d::")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(fn, world: int, *args):
+    """``fn(rank, world, *args, queue)`` started in ``world`` spawned
+    processes, each to put ``(rank, result)`` on ``queue``."""
+    import torch.multiprocessing as mp
+
+    q = mp.get_context("spawn").Queue()
+    return world, q, mp.spawn(fn, args=(world, *args, q), nprocs=world, join=False)
+
+
+def spawn_ranks(fn, world: int, *args) -> list:
+    return collect_ranks(*start_ranks(fn, world, *args))
+
+
+def collect_ranks(world: int, q, procs, timeout_s: float = 900.0) -> list:
+    """The results of ``start_ranks``' processes in rank order, after every
+    process has exited. A rank that fails fails the phase with its
+    traceback."""
+    import queue as queue_
+
+    results, deadline = {}, time.time() + timeout_s
+    try:
+        while len(results) < world:
+            try:
+                rank, out = q.get(timeout=1.0)
+                results[rank] = out
+            except queue_.Empty:
+                procs.join(timeout=0.0)  # raises with a failed rank's traceback
+                if time.time() > deadline:
+                    raise TimeoutError(f"{world} ranks gave {len(results)} results")
+        while not procs.join():
+            pass
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.terminate()
+    return [results[r] for r in range(world)]
+
+
+def count_on_cpu() -> None:
+    """For a rehearsal on the CPU: each custom op's CPU kernel (its plain
+    version) counts a launch, as its CUDA kernel does on the card."""
+    from prpe_tpu_torch.ops.kernels import _build, attention, nms
+
+    def counting(op, plain, key):
+        def fn(*args):
+            _build.launches[key] += 1
+            return plain(*args)
+        torch.library.register_kernel(op, "cpu", fn)
+
+    counting("prpe::mhsa_packed", attention.mhsa_packed_plain, "mhsa")
+    counting("prpe::mhsa_bhtd", attention.mhsa_bhtd_plain, "mhsa_bhtd")
+    counting("prpe::nms_keep", nms.nms_keep_plain, "nms")
+
+
+def _rank_device(device_str: str) -> torch.device:
+    """A spawned rank's device: the card (fp32 without TF32, as the parent
+    runs it), or the CPU in a rehearsal."""
+    torch.set_num_threads(2)
+    device = torch.device(device_str)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        count_on_cpu()
+    return device
+
+
+def state_digest(state_dict, skip=()) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for k in sorted(state_dict):
+        if k in skip:
+            continue
+        digest.update(k.encode())
+        t = state_dict[k].detach().cpu().contiguous()
+        digest.update(t.view(torch.uint8).numpy().tobytes() if t.dim() else
+                      t.reshape(1).view(torch.uint8).numpy().tobytes())
+    return digest.hexdigest()
+
+
+def step_errors(start, got, want, mask, got_metrics, want_metrics):
+    """(metric error, grad-norm error, worst parameter change over its bound,
+    worst statistic error) of a step against a reference step from the
+    same ``start``, with ``phase_train_reference``'s bounds: metrics 1e-4,
+    ``grad_norm`` 5e-3 of their magnitude (at least 1), each trained
+    parameter's change within 1e-1 of the reference change's largest entry
+    plus 1e-4 of the task's largest, statistics 1e-3; a frozen parameter
+    unmoved."""
+    metric_err = max(abs(got_metrics[k] - w) / max(1.0, abs(w)) for k, w in want_metrics.items()
+                     if k != "grad_norm")
+    norm_err = abs(got_metrics["grad_norm"] - want_metrics["grad_norm"]) / max(
+        1.0, abs(want_metrics["grad_norm"]))
+    task_scale = max(float((want[k] - start[k]).abs().max()) for k in mask if mask[k])
+    param_share = stat_err = 0.0
+    for k, w in want.items():
+        if k in mask and not mask[k]:
+            if not torch.equal(got[k], start[k]):
+                param_share = float("inf")
+            continue
+        if k in mask:
+            scale = float((w - start[k]).abs().max())
+            e = float(((got[k] - start[k]) - (w - start[k])).abs().max())
+            param_share = max(param_share, e / (1e-1 * scale + 1e-4 * task_scale))
+        else:
+            stat_err = max(stat_err, float((got[k].float() - w.float()).abs().max()) / max(
+                1.0, float(w.float().abs().max())))
+    return metric_err, norm_err, param_share, stat_err
+
+
+def _reference_rank(rank: int, world: int, init_dir: str, schedule, device_str: str, payload,
+                    queue) -> None:
+    """One process of ``phase_parallel_reference``: in each round of
+    ``schedule`` (meshes as (shape, the processes that form it)), one step
+    per task of the tiny model as its rank of its mesh, held against the
+    single-process step on the card; the process group is left between
+    rounds, the model kept."""
+    device = _rank_device(device_str)
+    from prpe_tpu_torch.core.config import MeshConfig, OptimConfig
+    from prpe_tpu_torch.models.combined import CombinedModel
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.parallel import distributed, mesh as mesh_lib
+    from prpe_tpu_torch.train.optim import build_optimizer
+    from prpe_tpu_torch.train.state import create_train_state
+    from prpe_tpu_torch.train.steps import make_train_step, trainable_mask, trainable_params
+
+    cfg = tiny_combined_config()
+    start = {k: t.to(device) for k, t in payload["state_dict"].items()}
+    refs = {task: (m, {k: t.to(device) for k, t in sd.items()})
+            for task, (m, sd) in payload["refs"].items()}
+    model = CombinedModel(cfg, device=device)
+    model.ada_face.dropout.rate = 0.0
+    out = {}
+    for r, meshes in enumerate(schedule):
+        mine = [(i, shape, procs) for i, (shape, procs) in enumerate(meshes) if rank in procs]
+        if not mine:
+            continue
+        i, shape, procs = mine[0]
+        distributed.initialize(f"file://{init_dir}/init{r}_{i}", len(procs), procs.index(rank),
+                               backend="gloo", device=device)
+        mesh = mesh_lib.build_mesh(MeshConfig(data_parallel=shape[0], model_parallel=shape[1]),
+                                   device=device)
+        rows = {}
+        for task, batch in payload["batches"].items():
+            # the full classifier back before the weights, then this rank's block
+            model.face_kernel.data = torch.empty_like(start["face_kernel"])
+            model.load_state_dict(start)
+            mesh_lib.shard_params(model, mesh)
+            tx = build_optimizer(OptimConfig(**TRAIN_OPTIM),
+                                 lambda u: mesh_lib.global_norm(u, mesh))
+            state = create_train_state(model, {task: tx}, {task: trainable_params(model, task)})
+            step = make_train_step(model, task, tx, cfg)
+            reset_launches()
+            _, metrics = step(state, mesh_lib.shard_batch(batch, mesh),
+                              torch.Generator(device=device))
+            _sync(device)
+            counts = {k: v for k, v in launches.items() if v}
+            got = {k: t.detach() for k, t in
+                   mesh_lib.gather_params(model.state_dict(), mesh).items()}
+            want_metrics, want = refs[task]
+            errs = step_errors(start, got, want, trainable_mask(model, task),
+                               {k: float(v) for k, v in metrics.items()}, want_metrics)
+            rows[task] = dict(launches=counts, digest=state_digest(got), errors=dict(
+                zip(("metric", "grad_norm", "param_share", "stat"), errs)),
+                loss=float(metrics["loss"]))
+        out[f"dp{shape[0]}_mp{shape[1]}"] = dict(coords=(mesh.data_rank, mesh.model_rank),
+                                                 group_rank=procs.index(rank), tasks=rows)
+        distributed.shutdown()
+    out["done"] = time.perf_counter()  # one clock for every process of the host
+    queue.put((rank, out))
+
+
+def phase_parallel_reference(device, schedule=((((2, 1), (0, 1)), ((1, 2), (2, 3))),
+                                               (((2, 2), (0, 1, 2, 3)),)), meanwhile=()):
+    """The tiny fp32 combined model, one SGD step per task (branch scope,
+    dropout off) at (dp, mp) = (2, 1), (1, 2) and (2, 2): four spawned
+    processes share the card under gloo, as two meshes of two and then one
+    of four (``schedule``), each rank with its rows of the batch of 8 and its
+    block of the classes. Against the single-process step on the card from
+    the same weights and batch, within ``phase_train_reference``'s bounds;
+    every rank of a mesh ends with bit-equal parameters, BatchNorm
+    statistics and margin buffers (``face_kernel`` gathered); K2 launched
+    once per ViT block in each rank's pose step, nothing else. The calls in
+    ``meanwhile`` (phases that time nothing) run in this process while the
+    ranks do. Returns the launches per rank of each mesh."""
+    import tempfile
+
+    from prpe_tpu_torch.core.config import TASKS
+    from prpe_tpu_torch.models.combined import CombinedModel
+
+    cfg = tiny_combined_config()
+    batches = train_batches(cfg, 8, 64, seed=3)
+    start_model = CombinedModel(cfg, device="cpu", seed=2)
+    start = {k: t.clone() for k, t in start_model.state_dict().items()}
+    refs = {}
+    for task in TASKS:
+        model = CombinedModel(cfg, device=device)
+        model.load_state_dict(start)
+        model.ada_face.dropout.rate = 0.0
+        metrics = one_train_step(model, task, cfg, TRAIN_OPTIM, batches[task])
+        refs[task] = (metrics, {k: t.detach().cpu() for k, t in model.state_dict().items()})
+        del model
+    payload = {"state_dict": start, "batches": batches, "refs": refs}
+    processes = 1 + max(p for meshes in schedule for _, procs in meshes for p in procs)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        started = start_ranks(_reference_rank, processes, d, schedule, str(device), payload)
+        for call in meanwhile:
+            call()
+        meanwhile_s = time.perf_counter() - t0
+        results = collect_ranks(*started)
+    run_s = time.perf_counter() - t0
+    ranks_s = max(r["done"] for r in results) - t0
+    rows, counts = {}, {}
+    for name in sorted({n for r in results for n in r if n != "done"}):
+        ranks = sorted((r[name] for r in results if name in r), key=lambda x: x["group_rank"])
+        for task in TASKS:
+            per_rank = [r["tasks"][task] for r in ranks]
+            want_launches = {"mhsa": cfg.pose.vit_layers} if task == "pose_estimation" else {}
+            if any(r["launches"] != want_launches for r in per_rank):
+                fail(f"parallel_reference: {name} {task} launched "
+                     f"{[r['launches'] for r in per_rank]}, expected {want_launches} a rank")
+            if len({r["digest"] for r in per_rank}) != 1:
+                fail(f"parallel_reference: {name} {task}: the ranks' parameters, statistics "
+                     "or margin buffers differ")
+            e = per_rank[0]["errors"]
+            if not (e["metric"] <= 1e-4 and e["grad_norm"] <= 5e-3 and e["param_share"] <= 1.0
+                    and e["stat"] <= 1e-3):
+                fail(f"parallel_reference: {name} {task} off the single-process step: {e}")
+        counts[name] = [{t: r["tasks"][t]["launches"] for t in TASKS} for r in ranks]
+        rows[name] = dict(ranks=len(ranks), coords=[r["coords"] for r in ranks],
+                          errors={t: ranks[0]["tasks"][t]["errors"] for t in TASKS},
+                          losses={t: ranks[0]["tasks"][t]["loss"] for t in TASKS},
+                          single_losses={t: refs[t][0]["loss"] for t in TASKS},
+                          launches_per_rank=counts[name], ranks_equal=True)
+    if sorted(rows) != ["dp1_mp2", "dp2_mp1", "dp2_mp2"]:
+        fail(f"parallel_reference: ran the meshes {sorted(rows)}")
+    emit("parallel_reference", backend="gloo", batch=8, image_size=64, processes=processes,
+         run_s=run_s, ranks_s=ranks_s, meanwhile_s=meanwhile_s, meshes=rows)
+    return counts
+
+
+def _cli_rank(rank: int, world: int, runs, device_str: str, profile_task: str, gate,
+              queue) -> None:
+    """One spawned process of ``phase_parallel``: ready on the card (CUDA
+    context, cuDNN and cuBLAS started), it waits for ``gate``, then runs
+    ``_cli_runs``."""
+    device = _rank_device(device_str)
+    if device.type == "cuda":
+        x = torch.ones(2, 8, 16, 16, device=device, requires_grad=True)
+        w = torch.ones(8, 8, 3, 3, device=device)
+        (torch.nn.functional.conv2d(x, w).sum() + (x.flatten(1) @ x.flatten(1).T).sum()).backward()
+        _sync(device)
+    gate.wait()
+    queue.put((rank, _cli_runs(rank, runs, device, profile_task)))
+
+
+def _cli_runs(rank: int, runs, device, profile_task: str) -> dict:
+    """For each of ``runs`` (name, number of processes, gloo rendezvous or
+    None, argv) that this process takes part in, ``cli/train.py::main`` as
+    its ``rank``, with the run's launches, peak memory, the steps' times, a
+    profile of rank 0's first ``profile_task`` step, the seconds until
+    training starts and in checkpoint writes, and a digest of the
+    replicated parameters and buffers at the end of training. Where the run
+    names a gloo rendezvous, this process joins it first and leaves it
+    after: ranks that share the one card need gloo (NCCL refuses two ranks
+    on one GPU), and the CLI keeps its caller's process group; otherwise
+    the CLI joins the rendezvous of its argv."""
+    cuda = device.type == "cuda"
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from prpe_tpu_torch.cli import train as cli
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.parallel import distributed, mesh as mesh_lib
+    from prpe_tpu_torch.train import checkpoint, round_robin
+
+    out = {}
+    make_step, train = round_robin.make_train_step, round_robin.RoundRobinTrainer.train
+
+    def make(model, task, *a, **k):
+        step = make_step(model, task, *a, **k)
+        times = out["step_ms"].setdefault(task, [])
+
+        def timed(state, batch, gen=None):
+            if task == profile_task and rank == 0 and not times:
+                return profiled(state, batch, gen)
+            _sync(device)
+            t0 = time.perf_counter()
+            result = step(state, batch, gen)
+            _sync(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return result
+
+        def profiled(state, batch, gen):
+            _sync(device)
+            t0 = time.perf_counter()
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+            with profile(activities=activities) as prof:
+                result = step(state, batch, gen)
+                _sync(device)
+            wall = (time.perf_counter() - t0) * 1e3
+            coll, kernel_ms, memcpy_ms = [], 0.0, 0.0
+            for e in prof.key_averages():
+                key = e.key.lower()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                    kernel_ms += e.self_device_time_total / 1e3
+                    if "memcpy" in key:
+                        memcpy_ms += e.self_device_time_total / 1e3
+                if any(c in key for c in COLLECTIVE_KEYS):
+                    coll.append([e.key[:60], e.count, e.cpu_time_total / 1e3,
+                                 e.device_time_total / 1e3])
+            out["profile"] = dict(step_wall_ms=wall, device_ms=kernel_ms, memcpy_device_ms=memcpy_ms,
+                                  collective_device_ms=sum(
+                                      r[3] for r in coll if r[0].lower().startswith("nccl")),
+                                  collectives=sorted(coll, key=lambda r: -r[2])[:8])
+            times.append(None)  # the profiled step: not timed
+            return result
+        return timed
+
+    def train_and_digest(self, *a, **k):
+        out["setup_s"] = time.perf_counter() - out["t0"]
+        result = train(self, *a, **k)
+        skip = ([n for n, s in mesh_lib.make_param_shardings(self.mesh, self.model).items()
+                 if s.axis is not None] if self.mesh is not None else [])
+        out["digest"] = state_digest(self.model.state_dict(), skip)
+        return result
+
+    def timed_save(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return save_slot(self, *a, **k)
+        finally:
+            out["save_s"] += time.perf_counter() - t
+
+    save_slot = checkpoint.CheckpointManager._save_slot
+    round_robin.make_train_step = make
+    round_robin.RoundRobinTrainer.train = train_and_digest
+    checkpoint.CheckpointManager._save_slot = timed_save
+    results = {}
+    try:
+        for name, processes, gloo, argv in runs:
+            if rank >= processes:
+                continue
+            out.clear()
+            t0 = time.perf_counter()
+            out.update(profile=None, step_ms={}, t0=t0, save_s=0.0)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            reset_launches()
+            if gloo:
+                distributed.initialize(gloo, processes, rank, backend="gloo", device=device)
+            try:
+                code = cli.main([*argv, "--process-id", str(rank)])
+            finally:
+                if gloo:
+                    distributed.shutdown()
+            _sync(device)
+            out.pop("t0")
+            results[name] = dict(out, code=code, run_s=time.perf_counter() - t0,
+                                 launches={k: v for k, v in launches.items() if v},
+                                 peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
+                                           if cuda else 0.0))
+    finally:
+        round_robin.make_train_step, round_robin.RoundRobinTrainer.train = make_step, train
+        checkpoint.CheckpointManager._save_slot = save_slot
+    return results
+
+
+def phase_parallel(device, root: str, size: int = 640, batch: int = 32, layers: int = 12,
+                   full=("--preset", "full", "--dtype", "bfloat16"), train_ms=None,
+                   classes=None,
+                   runs=(("nccl_world1", 1, "nccl", ("--data-parallel", "1")),
+                         ("gloo_dp2", 2, "gloo", ("--data-parallel", "2")),
+                         ("gloo_mp2", 2, "gloo", ("--data-parallel", "1", "--model-parallel",
+                                                  "2", "--save-every", "1")))) -> dict:
+    """``cli/train.py`` at ``full`` over the datasets under ``root`` (64
+    train and 32 val images a task: 2 steps and one val batch at the global
+    batch of 32, ``--trainable branch``, one epoch), each ``runs`` entry
+    (name, processes, backend, mesh flags) once: NCCL at world 1 in this
+    process (a wiring check of the collectives, not a multi-GPU number),
+    then the gloo runs in turn in the same spawned processes, which start
+    on the card meanwhile and wait for it: two gloo ranks on the one card
+    at dp = 2, and at mp = 2 (``face_kernel`` shards of (512, 42871)) with
+    a combined checkpoint after every task.
+    Per run: ms a step per task from rank 0's history beside the ``train``
+    phase's, peak GiB per rank, launches per rank (K1 once per detection val
+    batch, K2 ``layers`` per pose train step and 2 ``layers`` per pose val
+    batch, on every rank), the collectives in a profile of rank 0's first
+    pose step, the replicated parameters and buffers bit-equal on every rank,
+    and the checkpoints: one file a save, the full (512, 85742)
+    ``face_kernel`` in each. Returns the launches per rank of each run."""
+    import shutil
+    import tempfile
+
+    from prpe_tpu_torch.core.config import TASKS, AdaFaceConfig
+
+    classes = classes or AdaFaceConfig().num_classes
+    out, counts = {}, {}
+    tmp = tempfile.mkdtemp(prefix="prpe_parallel_")
+    try:
+        specs = []
+        for name, world, backend, mesh_flags in runs:
+            # gloo: every rank on the one card; NCCL: the CLI's cuda:LOCAL_RANK
+            flag = ("cpu" if device.type == "cpu" else "cuda:0" if backend == "gloo" else None)
+            address = f"127.0.0.1:{free_port()}"
+            specs.append((name, world, f"tcp://{address}" if backend == "gloo" else None,
+                          data_argv(root, os.path.join(tmp, name), flag, size, batch, *full,
+                                    "--epochs", "1", "--save-every", "2",
+                                    "--max-train-samples", "64", "--trainable", "branch",
+                                    *mesh_flags, "--coordinator", address,
+                                    "--num-processes", str(world))))
+        # NCCL in this process, warm on the card; the gloo runs in turn in
+        # the same spawned processes, which start meanwhile and wait for it
+        import torch.multiprocessing as mp
+
+        t0 = time.perf_counter()
+        gate = mp.get_context("spawn").Event()
+        gloo_specs = [spec for spec in specs if spec[2]]
+        started = start_ranks(_cli_rank, max(w for _, w, _, _ in gloo_specs), gloo_specs,
+                              str(device), "pose_estimation", gate)
+        try:
+            here = _cli_runs(0, [spec for spec in specs if not spec[2]], device,
+                             "pose_estimation")
+        except BaseException:
+            for proc in started[2].processes:
+                proc.terminate()
+            raise
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # the card's memory to the ranks
+        gate.set()
+        processes = collect_ranks(*started)
+        phase_s = time.perf_counter() - t0
+        for name, world, backend, mesh_flags in runs:
+            run_dir = os.path.join(tmp, name)
+            ranks = [here[name]] if name in here else [p[name] for p in processes[:world]]
+            run_s = ranks[0]["run_s"]  # the other ranks may have waited for it to start
+            if any(r["code"] != 0 for r in ranks):
+                fail(f"parallel: {name} returned {[r['code'] for r in ranks]}")
+            want = {"nms": 2, "mhsa": 2 * layers + 2 * layers}
+            if any(r["launches"] != want for r in ranks):
+                fail(f"parallel: {name} launched {[r['launches'] for r in ranks]}, "
+                     f"expected {want} on each rank")
+            if len({r["digest"] for r in ranks}) != 1:
+                fail(f"parallel: {name}: the ranks' replicated parameters or buffers differ")
+            rows = {}
+            for task in TASKS:
+                hist = history(run_dir, task)
+                if len(hist) != 1 or not all(v == v and abs(v) != float("inf")
+                                             for v in hist[0].values()):
+                    fail(f"parallel: {name} {task} logged {hist}")
+                # the steps on the card, each between two synchronisations,
+                # without the loader's wait; the first warms up (and, for
+                # pose, is the profiled one)
+                step_ms = ranks[0]["step_ms"][task]
+                rows[task] = dict(step_ms_rank0=step_ms, ms_per_step=step_ms[-1],
+                                  train_phase_ms_per_step=(train_ms or {}).get(task),
+                                  epoch_ms_per_step=batch * 1e3 / hist[0]["train/images_per_sec"],
+                                  loss=hist[0]["train/loss"], val_loss=hist[0].get("val/loss"))
+            ck = os.path.join(run_dir, "ck")
+            written = sorted(os.listdir(ck))
+            if any(".tmp" in f for f in written):
+                fail(f"parallel: {name} left {written}")
+            meta = json.loads(open(os.path.join(ck, "meta.json")).read())
+            epochs = sorted(f for f in written if f.startswith("epoch"))
+            kept = [c["name"] + ".pt" for c in meta["checkpoints"]]
+            if epochs != sorted(kept):
+                fail(f"parallel: {name} wrote {epochs}, its meta lists {kept}")
+            files = [os.path.join(ck, f) for f in written if f.endswith(".pt")]
+            for f in files:
+                kernel = torch.load(f, map_location="cpu", mmap=True,
+                                    weights_only=True)["model"]["face_kernel"]
+                if tuple(kernel.shape) != (512, classes):
+                    fail(f"parallel: {name} {os.path.basename(f)} holds face_kernel "
+                         f"{tuple(kernel.shape)}")
+            counts[name] = [r["launches"] for r in ranks]
+            out[name] = dict(ranks=world, backend=backend, mesh=list(mesh_flags), run_s=run_s,
+                             setup_s_rank0=ranks[0]["setup_s"],
+                             save_s_per_rank=[r["save_s"] for r in ranks], tasks=rows, peak_gib_per_rank=[r["peak_gib"] for r in ranks],
+                             launches_per_rank=counts[name], ranks_equal=True,
+                             checkpoints=written, kept=len(meta["checkpoints"]),
+                             pose_step_profile_rank0=ranks[0]["profile"])
+            shutil.rmtree(run_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("parallel", batch=batch, image_size=size, phase_s=phase_s, note="nccl_world1 is one "
+         "process on one card: a wiring check of the collectives, not a multi-GPU number",
+         runs=out)
+    return counts
+
+
+def phase_device_resident(device, root: str, size: int = 640, batch: int = 32,
+                          layers: int = 12, full=("--preset", "full"), epochs: int = 2,
+                          train_ms=None, disk_ms=None) -> dict:
+    """``cli/train.py --device-resident`` over the datasets under ``root``
+    for ``epochs`` epochs, frozen and then with ``--device-resident-refresh``
+    (one process): the staged MiB, ms a step per task and epoch from the
+    history beside ``train_data``'s steps from disk (``disk_ms``) and
+    ``train``'s on a reused batch (``train_ms``), the loaders'
+    ``fresh_epochs`` / ``stale_epochs``, K1 once per detection val batch and
+    K2 ``layers`` per pose train step plus 2 ``layers`` per pose val batch
+    in every epoch. Returns the frozen run's launches."""
+    import shutil
+    import tempfile
+
+    from prpe_tpu_torch.cli import train as cli
+    from prpe_tpu_torch.core.config import TASKS
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    build = cli.build_task_loaders
+    out, first = {}, None
+    tmp = tempfile.mkdtemp(prefix="prpe_device_resident_")
+    try:
+        for name, flags in (("frozen", ("--device-resident",)),
+                            ("refresh", ("--device-resident", "--device-resident-refresh"))):
+            captured = {}
+
+            def capture(args, cfg, device=None, **kw):
+                captured.update(build(args, cfg, device, **kw))
+                return captured
+
+            run_dir = os.path.join(tmp, name)
+            cli.build_task_loaders = capture
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                if cli.main(data_argv(root, run_dir, device, size, batch, *full, "--epochs",
+                                      str(epochs), "--save-every", str(epochs + 1),
+                                      *flags)) != 0:
+                    fail(f"device_resident: the {name} run did not return 0")
+                _sync(device)
+                run_s = time.perf_counter() - t0
+            finally:
+                cli.build_task_loaders = build
+            counts = {k: v for k, v in launches.items() if v}
+            val = {t: captured[t]["val"].steps_per_epoch for t in TASKS}
+            pose_steps = captured["pose_estimation"]["train"].steps_per_epoch
+            want = {"nms": epochs * (val["person_detection"] + val["face_detection"]),
+                    "mhsa": epochs * layers * (pose_steps + 2 * val["pose_estimation"])}
+            if counts != want:
+                fail(f"device_resident: {name} launched {counts}, expected {want}")
+            rows, staged = {}, 0
+            for task in TASKS:
+                tl = captured[task]
+                if not all(hasattr(tl[s], "total_bytes") for s in ("train", "val")):
+                    fail(f"device_resident: {name} {task} was not staged")
+                staged += tl["train"].total_bytes + tl["val"].total_bytes
+                hist = history(run_dir, task)
+                if len(hist) != epochs or not all(v == v and abs(v) != float("inf")
+                                                  for h in hist for v in h.values()):
+                    fail(f"device_resident: {name} {task} logged {hist}")
+                stats = tl["train"].stats
+                rows[task] = dict(
+                    ms_per_step=[batch * 1e3 / h["train/images_per_sec"] for h in hist],
+                    disk_ms_per_step=(disk_ms or {}).get(task),
+                    train_phase_ms_per_step=(train_ms or {}).get(task),
+                    fresh_epochs=stats["fresh_epochs"], stale_epochs=stats["stale_epochs"])
+            if name == "frozen" and any(r["stale_epochs"] for r in rows.values()):
+                fail(f"device_resident: the frozen run counted stale epochs {rows}")
+            if name == "refresh" and any(r["fresh_epochs"] + r["stale_epochs"] != epochs
+                                         for r in rows.values()):
+                fail(f"device_resident: the refresh run counted {rows}")
+            out[name] = dict(run_s=run_s, staged_mib=staged / 2 ** 20, launches=counts,
+                             tasks=rows)
+            first = first or counts
+            shutil.rmtree(run_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("device_resident", batch=batch, image_size=size, epochs=epochs, runs=out)
+    return first
 
 
 # ------------------------------------------------------- the YOLO trainer ---
@@ -1572,7 +2219,7 @@ def phase_yolo_reference(device, size: int = 64, batch: int = 4) -> dict:
 
 def mosaic_rates(root: str, size: int, batch: int, workers=(0, 2)) -> dict:
     """Host images/s of ``YoloMosaicDataset`` alone (decode, mosaic, affine,
-    MixUp, HSV, flip, collate; no card), over one epoch of ``loader.host``,
+    MixUp, HSV, flip, collate; no card), over one batch of ``loader.host``,
     with the mosaic and without it, at each worker count; the native
     library already built."""
     from prpe_tpu_torch import native
@@ -1586,7 +2233,8 @@ def mosaic_rates(root: str, size: int, batch: int, workers=(0, 2)) -> dict:
         for w in workers:
             ds = YoloMosaicDataset(YoloTxtDataset(root, "train", size, DetectionConfig().max_gt),
                                    mosaic_prob=mosaic)
-            loader = pipeline.make_epoch_loader(ds, batch, num_workers=w, prefetch=0)
+            loader = pipeline.make_epoch_loader(ds, batch, max_samples=batch, num_workers=w,
+                                                prefetch=0)
             try:
                 t0 = time.perf_counter()
                 n = sum(len(b["image"]) for b in loader.host(0))
@@ -1901,22 +2549,35 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         for b in (32, 128):
             phase_ln_stages(gen, device, dtype, b)
-    phase_odd_shapes(gen, device)
-    phase_reference(device)
+    # the correctness checks, and the export whose time is the host's trace,
+    # run while the parallel reference's ranks share the card
+    parallel_ref_counts = phase_parallel_reference(device, meanwhile=(
+        lambda: phase_odd_shapes(gen, device), lambda: phase_reference(device),
+        lambda: phase_combined_reference(device), lambda: phase_train_reference(device),
+        lambda: phase_yolo_reference(device), lambda: phase_export(device)))
     mode_counts = phase_attn_modes(device)
     counts = phase_cascade(device)
     counts_f32 = fp32_cascade()
-    phase_combined_reference(device)
     phase_combined(device)
     phase_infer_cli(device)
-    phase_export(device)
     grad_rows = {(dt, layout): phase_mhsa_grad(gen, device, dt, layout)
                  for dt in (torch.bfloat16, torch.float32) for layout in ("packed", "bhtd")}
-    phase_train_reference(device)
     train_counts = phase_train(device)
     cli_counts = phase_train_cli(device)
-    data_counts = phase_train_data(device, train_ms=train_counts["ms"])
-    phase_yolo_reference(device)
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="prpe_png_datasets_")
+    try:
+        emit("png_datasets", seconds=make_png_datasets(root), train_images=64, val_images=32,
+             face_crops=16 * 20)
+        data = phase_train_data(device, train_ms=train_counts["ms"], root=root)
+        data_counts = data["launches"]
+        resident_counts = phase_device_resident(device, root, train_ms=train_counts["ms"],
+                                                disk_ms=data["ms"])
+        parallel_counts = phase_parallel(device, root, train_ms=train_counts["ms"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     yolo_counts = phase_train_yolo(device)
     phase_eval_verification(device)
 
@@ -1938,7 +2599,11 @@ def main() -> int:
              launches_f32=counts_f32["pallas_packed"]["nms"],
              launches_detection_eval_step=train_counts["eval"]["person_detection"]["nms"],
              launches_train_cli=cli_counts["nms"], launches_train_data=data_counts["nms"],
-             launches_train_yolo=yolo_counts["nms"], **row(nms_rows[0]),
+             launches_train_yolo=yolo_counts["nms"],
+             launches_device_resident=resident_counts["nms"],
+             launches_parallel_per_rank={k: [r["nms"] for r in v]
+                                         for k, v in parallel_counts.items()},
+             **row(nms_rows[0]),
              **suffixed(nms_rows[1], "_k1024")),
         dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
              replaces=pallas + "attention_kernel.py:92",
@@ -1946,6 +2611,12 @@ def main() -> int:
              launches_f32=counts_f32["pallas_packed"]["mhsa"],
              launches_pose_train_step=train_counts["step"]["pose_estimation"]["mhsa"],
              launches_train_cli=cli_counts["mhsa"], launches_train_data=data_counts["mhsa"],
+             launches_device_resident=resident_counts["mhsa"],
+             launches_parallel_per_rank={k: [r["mhsa"] for r in v]
+                                         for k, v in parallel_counts.items()},
+             launches_parallel_reference_pose_step_per_rank={
+                 k: [r["pose_estimation"]["mhsa"] for r in v]
+                 for k, v in parallel_ref_counts.items()},
              **attn_keys(mhsa_rows),
              **grad_keys("packed")),
     ]

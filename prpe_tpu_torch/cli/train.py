@@ -2,11 +2,19 @@
 
     python -m prpe_tpu_torch.cli.train [--device cpu] [--preset tiny]
         [--epochs N] [--batch-size B] [--image-size S] [--tasks a,b]
-        [--checkpoint-dir DIR] [--resume-checkpoint latest|NAME] ...
+        [--checkpoint-dir DIR] [--resume-checkpoint latest|NAME]
+        [--data-parallel DP] [--model-parallel MP] [--coordinator HOST:PORT
+        --num-processes N --process-id I] [--device-resident] ...
 
 The JAX package's training CLI (``prpe_tpu/cli/train.py``) with the same
-flags, less the mesh, multi-host and device-resident ones, plus
-``--device`` (CUDA unless the caller names another). Each task reads its
+flags, plus ``--device`` (CUDA unless the caller names another). Several
+processes, one per device, train as one over a
+(data, model) mesh: start one process per device with ``--coordinator``,
+``--num-processes`` and ``--process-id``, or under ``torchrun`` (which sets
+``RANK`` and ``WORLD_SIZE``), and give the mesh with ``--data-parallel``
+(-1: every process) and ``--model-parallel`` (the AdaFace classifier split
+by class). ``--batch-size`` is the global batch; each data rank takes
+``batch / dp`` rows of it. Each task reads its
 dataset directory (``--person-data-dir`` and ``--face-data-dir``: YOLO-txt,
 ``--face-rec-data-dir``: identity folders, ``--pose-data-dir``: COCO
 keypoints; PNG and BMP decode without PIL, JPEG needs it); its batches are
@@ -32,13 +40,16 @@ import torch
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def build_task_loaders(args, cfg, device=None):
+def build_task_loaders(args, cfg, device=None, mesh=None):
     """Per task, its train and val loaders and eval hook: the dataset
     readers where the task's directory holds a dataset (batches prefetched
-    to ``device``), else deterministic synthetic batches. Hooks and val
-    loaders as in the JAX package's CLI: the mAP hook on both detection
-    tasks, synthetic or not; the verification and keypoint hooks, and the
-    pose val loader, only with their datasets."""
+    to ``device``; under a ``mesh`` this data rank's ``batch / dp`` rows of
+    each global batch, from its data rank's stride of the samples, which
+    the ranks of one model group share), else deterministic synthetic
+    global batches. Hooks and val loaders as in the JAX package's
+    CLI: the mAP hook on both detection tasks, synthetic or not; the
+    verification and keypoint hooks, and the pose val loader, only with
+    their datasets."""
     from prpe_tpu_torch.data import pipeline, synthetic
     from prpe_tpu_torch.data.detection import YoloTxtDataset
     from prpe_tpu_torch.data.faces import IdentityFolderDataset
@@ -49,8 +60,9 @@ def build_task_loaders(args, cfg, device=None):
 
     def epochs(dataset, max_samples, train):
         return pipeline.make_epoch_loader(
-            dataset, args.batch_size, max_samples=max_samples, shuffle=train, device=device,
-            num_workers=args.num_workers if train else 0)
+            dataset, args.batch_size // (mesh.dp if mesh else 1), max_samples=max_samples,
+            shuffle=train, device=device, num_workers=args.num_workers if train else 0,
+            shard=(mesh.data_rank, mesh.dp) if mesh else None)
 
     loaders = {}
 
@@ -179,35 +191,159 @@ def parse_args(argv=None):
                     default="branch",
                     help="per-task optimizer scope; 'branch' leaves the shared trunk in "
                          "no optimizer")
-    ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--device-resident", action="store_true",
+                    help="stage one epoch of every task on the card before the model is "
+                         "built and replay it each epoch (augmentation frozen to the staged "
+                         "epoch): the host's decoding then stays out of the steps, for "
+                         "datasets that fit the card (data/pipeline.py::"
+                         "device_resident_loader)")
+    ap.add_argument("--device-resident-refresh", action="store_true",
+                    help="with --device-resident: fresh augmentation each epoch (the "
+                         "reference regimen, yolopt/dataset.py:105-176): a host thread "
+                         "augments epoch N+1 during epoch N, its batches copied to the "
+                         "card on a side stream between steps; an epoch that starts "
+                         "before it is done replays the last one. Needs twice the staged "
+                         "memory")
+    ap.add_argument("--device-resident-max-gb", type=float, default=8.0,
+                    help="refuse --device-resident beyond this total staged size (GiB; "
+                         "the model, its optimizer states and the activations need the "
+                         "rest of the card's memory)")
+    # (data, model) mesh over the processes (DDP + SyncBN semantics, the
+    # reference's training/yolopt/main.py:46-60)
+    ap.add_argument("--data-parallel", type=int, default=0,
+                    help="data-axis size; -1 = every process; 0 = no mesh")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model-axis size (splits the AdaFace classifier by class)")
+    # rendezvous (the reference's torch.distributed env:// init,
+    # training/yolopt/main.py:271-277)
+    ap.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of process 0's rendezvous (tcp://), or an init URL "
+                         "such as file:///shared/path; without it, torchrun's environment")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, cuda:LOCAL_RANK under a rendezvous)")
     return ap.parse_args(argv)
+
+
+def _setup_mesh(args):
+    """-> (device, mesh, whether this call started the process group).
+
+    A rendezvous (``--coordinator`` / ``--num-processes``, or torchrun's
+    ``WORLD_SIZE``) joins the process group, each process on its own card
+    unless ``--device`` names one; a failed rendezvous raises. A process
+    group that the caller started stays the caller's. A mesh asked for
+    without one runs on a process group of this process alone, so that its
+    collectives run all the same."""
+    import os
+
+    import torch.distributed as dist
+
+    from prpe_tpu_torch.core.config import MeshConfig
+    from prpe_tpu_torch.core.device import resolve_device
+    from prpe_tpu_torch.parallel import distributed
+    from prpe_tpu_torch.parallel.mesh import build_mesh
+
+    device = resolve_device(args.device)
+    started = False
+    want_mesh = args.data_parallel != 0 or args.model_parallel > 1
+    if args.coordinator or args.num_processes or "WORLD_SIZE" in os.environ:
+        named = args.device is not None and ":" in args.device
+        started = not dist.is_initialized()  # a caller's process group stays the caller's
+        distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                               device=device if named or device.type == "cpu" else None)
+        device = distributed.local_device() or device
+    elif want_mesh and not dist.is_initialized():
+        distributed.initialize(None, 1, 0, device=device)
+        started = True
+    try:
+        if not want_mesh:
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                raise SystemExit(f"{dist.get_world_size()} processes train as one only over "
+                                 "a mesh: pass --data-parallel -1 (or a size)")
+            return device, None, started
+        mesh = build_mesh(MeshConfig(data_parallel=args.data_parallel or -1,
+                                     model_parallel=args.model_parallel), device=device)
+        if args.batch_size % mesh.dp:
+            raise SystemExit(f"--batch-size {args.batch_size} does not split over "
+                             f"{mesh.dp} data ranks")
+    except BaseException:
+        if started:
+            distributed.shutdown()
+        raise
+    if mesh.is_primary:
+        print(f"mesh: {dict(zip(mesh.axis_names, mesh.shape))}", flush=True)
+    return device, mesh, started
+
+
+def stage_on_device(args, loaders, device, mesh) -> int:
+    """``--device-resident``: every loader staged on ``device`` (this rank's
+    rows), refused beyond ``--device-resident-max-gb``. Returns the staged
+    bytes."""
+    from prpe_tpu_torch.data.pipeline import device_resident_loader
+    from prpe_tpu_torch.parallel.mesh import shard_batch
+
+    budget = args.device_resident_max_gb * 2 ** 30
+    total = 0
+    for tname, tl in loaders.items():
+        for split in ("train", "val"):
+            if tl.get(split) is None:
+                continue
+            per_rank = mesh is None or getattr(tl[split], "per_rank", False)
+            tl[split] = device_resident_loader(
+                tl[split], device=device, reshuffle=split == "train", seed=args.seed,
+                name=f"{tname}/{split}",
+                refresh=args.device_resident_refresh and split == "train",
+                shard=None if per_rank else (lambda b: shard_batch(b, mesh)))
+            total += tl[split].total_bytes
+            if total > budget:  # checked per loader: stop before the card is full
+                raise SystemExit(
+                    f"--device-resident exceeded --device-resident-max-gb "
+                    f"{args.device_resident_max_gb} ({total / 2**30:.2f} GiB staged at "
+                    f"{tname}/{split}); lower --max-train-samples/--image-size or drop the "
+                    "flag")
+    print(f"[device-resident] total staged: {total / 2**20:.0f} MiB", flush=True)
+    return total
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
 
-    from prpe_tpu_torch.core.device import resolve_device
+    from prpe_tpu_torch.parallel import distributed
 
-    device = resolve_device(args.device)
-    cfg = model_config(args)
-    loaders = build_task_loaders(args, cfg, device)
+    device, mesh, started = _setup_mesh(args)
+    loaders = {}
     try:
-        return _train(args, cfg, device, loaders)
+        cfg = model_config(args)
+        loaders = build_task_loaders(args, cfg, device, mesh=mesh)
+        if args.tasks:
+            keep = [t.strip() for t in args.tasks.split(",") if t.strip()]
+            unknown = [t for t in keep if t not in loaders]
+            if unknown:
+                raise SystemExit(f"--tasks: unknown task(s) {unknown}; "
+                                 f"choose from {sorted(loaders)}")
+            loaders = {k: v for k, v in loaders.items() if k in keep}
+        if args.device_resident:
+            # staged before the model is built: the card's memory is free
+            stage_on_device(args, loaders, device, mesh)
+        return _train(args, cfg, device, loaders, mesh)
     finally:
         close_loaders(loaders)
+        for key, tl in ((k, tl) for tl in loaders.values() for k in ("train", "val")):
+            stats = getattr(tl.get(key), "stats", None)
+            if stats is not None and "fresh_epochs" in stats:
+                print(f"[device-resident] {key} staging stats: fresh_epochs="
+                      f"{stats['fresh_epochs']} stale_epochs={stats['stale_epochs']}",
+                      flush=True)
+        if started:
+            distributed.shutdown()
 
 
-def _train(args, cfg, device, loaders) -> int:
+def _train(args, cfg, device, loaders, mesh=None) -> int:
     from prpe_tpu_torch.cli.build_model import build_variables
     from prpe_tpu_torch.core.config import TrainConfig, default_task_configs
+    from prpe_tpu_torch.parallel.mesh import shard_params
     from prpe_tpu_torch.train.round_robin import RoundRobinTrainer
-
-    if args.tasks:
-        keep = [t.strip() for t in args.tasks.split(",") if t.strip()]
-        unknown = [t for t in keep if t not in loaders]
-        if unknown:
-            raise SystemExit(f"--tasks: unknown task(s) {unknown}; choose from {sorted(loaders)}")
-        loaders = {k: v for k, v in loaders.items() if k in keep}
 
     if args.preset == "tiny":
         from prpe_tpu_torch.models.combined import CombinedModel
@@ -216,6 +352,10 @@ def _train(args, cfg, device, loaders) -> int:
     else:
         model, _ = build_variables(pathlib.Path(args.component_dir), cfg,
                                    dtype=_DTYPES[args.dtype], device=device)
+    if mesh is not None:
+        # every rank built the same weights from the seed; each keeps its
+        # block of the classifier's classes
+        shard_params(model, mesh)
 
     # each task keeps its optimizer's shape (pose: AdamW + one-cycle + the
     # ViT at 0.1x) and takes the CLI's lr; the schedule's horizon is the
@@ -238,7 +378,7 @@ def _train(args, cfg, device, loaders) -> int:
     tcfg = TrainConfig(total_epochs=args.epochs, seed=args.seed,
                        checkpoint_dir=args.checkpoint_dir, tasks=tasks,
                        save_every_epochs=args.save_every)
-    trainer = RoundRobinTrainer(model, cfg, tcfg, loaders, log_dir=args.log_dir)
+    trainer = RoundRobinTrainer(model, cfg, tcfg, loaders, log_dir=args.log_dir, mesh=mesh)
     if args.resume_checkpoint:
         trainer.resume(None if args.resume_checkpoint == "latest" else args.resume_checkpoint)
     trainer.train()

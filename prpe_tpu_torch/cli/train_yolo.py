@@ -27,7 +27,9 @@ another). Feature parity with the reference trainer
     a checkpoint (matplotlib)
 
 The training and eval steps are importable (``train_step``, ``eval_step``,
-``evaluate``). The JAX CLI's data-axis mesh comes with the parallel slice.
+``evaluate``). One process, as the JAX CLI: its docstring speaks of a
+data-axis mesh (``prpe_tpu/cli/train_yolo.py:11``), but it builds none, has
+no parallel flag and places no sharding.
 """
 
 from __future__ import annotations

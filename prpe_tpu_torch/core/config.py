@@ -1,16 +1,19 @@
-"""Configuration dataclasses for the serving cascade, the combined model and
-its training.
+"""Configuration dataclasses for the serving cascade, the combined model,
+its training and the device mesh.
 
-Own copies of ``prpe_tpu.core.config``'s detection, face, pose, combined
-model, cascade, optimizer, data, task and train configs, with the same
-field names and defaults (the tests check each field against the JAX
-package). Frozen, so a config can key a cache.
+Own copies of ``prpe_tpu.core.config``'s mesh, detection, face, pose,
+combined model, cascade, optimizer, data, task, train and framework
+configs, with the same field names and defaults (the tests check each field
+against the JAX package), and its JSON round trip (``config_to_json``,
+``_from_dict``). Frozen, so a config can key a cache.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 TASKS = (
     "person_detection",
@@ -18,6 +21,18 @@ TASKS = (
     "face_recognition",
     "pose_estimation",
 )
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The (data, model) process mesh: ``data`` splits the global batch,
+    ``model`` splits the AdaFace classifier by class."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    # -1 means "all remaining processes"
+    data_parallel: int = -1
+    model_parallel: int = 1
 
 
 @dataclass(frozen=True)
@@ -201,3 +216,38 @@ class CascadeConfig:
     face_capacity: Optional[int] = None
     # static NMS candidate count for cascade inference
     pre_nms_top_k: int = 256
+
+
+@dataclass(frozen=True)
+class FrameworkConfig:
+    model: CombinedModelConfig = field(default_factory=CombinedModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    cascade: CascadeConfig = field(default_factory=CascadeConfig)
+
+
+def _to_dict(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _to_dict(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_to_dict(x) for x in obj]
+    return obj
+
+
+def config_to_json(cfg: Any) -> str:
+    return json.dumps(_to_dict(cfg), indent=2)
+
+
+def _from_dict(cls: type, data: Dict[str, Any]) -> Any:
+    """The JAX package's reader, kept as it is: it rebuilds a nested config
+    only where the field's annotation is a class, which under postponed
+    annotations it never is, so nested configs come back as dicts."""
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        if dataclasses.is_dataclass(f.type) if isinstance(f.type, type) else False:
+            v = _from_dict(f.type, v)
+        kwargs[f.name] = v
+    return cls(**kwargs)

@@ -3,18 +3,21 @@ sharding (``prpe_tpu/data/pipeline.py``).
 
   * ``LimitedSampler`` — the reference's epoch-subsampling LimitedDataset
     (reference: object_detection/datamodule.py:17-36): shuffle then truncate
-    to ``max_samples`` per epoch, reshuffled each epoch; each process of an
-    initialised ``torch.distributed`` group takes a disjoint stride of the
-    sample list (DistributedSampler parity)
+    to ``max_samples`` per epoch, reshuffled each epoch; each shard (a
+    mesh's data rank, which the caller passes, else each process of an
+    initialised ``torch.distributed`` group) takes a disjoint stride of the
+    sample list, of equal length (DistributedSampler parity,
+    ``drop_last``). The ranks of one model group share a data rank and read
+    the same samples.
   * ``prefetch_to_device`` — a producer thread that pins each host batch and
     copies it to the card on a side CUDA stream, so the copy overlaps the
     step before it; on the CPU it only runs the host pipeline ahead
   * ``make_epoch_loader`` — the ``epoch -> iterator`` protocol the
     round-robin trainer consumes, with decode workers (``data/loader.py``)
     when ``num_workers > 0``
-
-The JAX package's ``device_resident_loader`` comes with the parallel slice
-and its ``--device-resident`` flags.
+  * ``device_resident_loader`` — one epoch staged on the card before the
+    first step and replayed every epoch, optionally refreshed by a host
+    thread that augments the next epoch meanwhile
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +66,8 @@ class LimitedSampler:
             rng.shuffle(idx)
         if self.max_samples is not None:
             idx = idx[: self.max_samples]
+        # equal shards: every rank takes as many steps as the others
+        idx = idx[: len(idx) - len(idx) % self.shard_count]
         return idx[self.shard_index:: self.shard_count]
 
 
@@ -184,6 +189,7 @@ def make_epoch_loader(
     device=None,
     collate: Optional[Callable] = None,
     num_workers: int = 0,
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Callable[[int], Iterator[Dict[str, Any]]]:
     """Bundle a dataset (len + ``__getitem__``) into the epoch -> iterator
     protocol of the round-robin trainer; batches land on ``device`` (CUDA:
@@ -194,9 +200,15 @@ def make_epoch_loader(
     ``DataLoader(num_workers=N)``; 0 decodes on the prefetch thread.
 
     The loader exposes ``host(epoch)`` (the host batches, no prefetch),
-    ``close()`` (stops the workers), ``steps_per_epoch`` and ``stats``
-    (``wait_s`` and ``batches`` summed over every epoch's prefetch)."""
-    sampler = LimitedSampler(len(dataset), max_samples, seed, shuffle)
+    ``close()`` (stops the workers), ``steps_per_epoch``, ``stats``
+    (``wait_s`` and ``batches`` summed over every epoch's prefetch) and
+    ``per_rank``: its batches are this data rank's rows (of
+    ``batch_size`` each; a mesh's global batch is ``batch_size`` times the
+    data axis). ``shard``: the (index, count) of the samples this process
+    reads, under a mesh its (data rank, data-axis size); None: the
+    sampler's default."""
+    index, count = shard or (None, None)
+    sampler = LimitedSampler(len(dataset), max_samples, seed, shuffle, index, count)
     collate = collate or getattr(dataset, "collate", default_collate)
 
     pool = None
@@ -220,8 +232,170 @@ def make_epoch_loader(
     loader.host = host
     loader.close = pool.close if pool is not None else (lambda: None)
     loader.stats = {"wait_s": 0.0, "batches": 0}
+    loader.per_rank = True
     # actual optimizer steps per epoch (drop_last batching over the
     # truncated, sharded index stream): the schedules' horizons read it
     n = len(dataset) if max_samples is None else min(len(dataset), max_samples)
     loader.steps_per_epoch = (n // sampler.shard_count) // batch_size
     return loader
+
+
+def device_resident_loader(
+    loader: Callable[[int], Iterable],
+    *,
+    device=None,
+    reshuffle: bool = True,
+    seed: int = 0,
+    name: str = "",
+    refresh: bool = False,
+    shard: Optional[Callable[[Dict[str, Any]], Dict[str, Any]]] = None,
+) -> Callable[[int], Iterator[Dict[str, Any]]]:
+    """Stage one epoch of ``loader`` on ``device`` up front and replay it
+    every epoch, in a new order each epoch unless ``reshuffle=False``
+    (``prpe_tpu/data/pipeline.py::device_resident_loader``). For a dataset
+    that fits the card: the host's decoding then stays out of every step.
+
+    ``refresh=False``: the augmentation is frozen to the staged epoch (every
+    epoch replays epoch 0's samples), which is not the reference's regimen
+    of fresh augmentation per epoch (training/yolopt/dataset.py:105-176).
+
+    ``refresh=True``: a host thread decodes and augments epoch N+1 while
+    the card steps through epoch N; the replay copies one of its batches to
+    the card per yielded batch, on a side stream, one copy in flight, and
+    swaps the new epoch in when it ends. An epoch that starts before the
+    host thread is done replays the newest staged epoch again, frozen (the
+    training never waits on the host). ``stats`` counts ``fresh_epochs`` and
+    ``stale_epochs`` and names the ``host_epoch`` ready to swap in; the card
+    holds at most two epochs of this loader.
+    An error of the host thread is raised in the consumer at the next swap.
+
+    ``shard`` (the rank's rows of a global batch) is applied to each host
+    batch before it is staged. The loader exposes ``total_bytes`` (2x with
+    ``refresh``, for the budget check), ``steps_per_epoch``, ``stats``,
+    ``per_rank`` and ``close``; it stages when this function is called.
+    """
+    device = torch.device("cpu") if device is None else torch.device(device)
+    cuda = device.type == "cuda"
+    # the raw host batches: the epoch loader's prefetch would copy them to
+    # the card on a thread of its own
+    host_loader = getattr(loader, "host", loader)
+    select = shard or (lambda b: b)
+
+    def to_device(batch, pin: bool = False):
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(np.ascontiguousarray(v))
+            if pin and cuda:
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=pin and cuda) if cuda else t.clone()
+        return out
+
+    batches: List[Dict[str, Any]] = []
+    total = 0
+    for batch in host_loader(0):
+        batch = select(batch)
+        batches.append(to_device(batch))
+        total += sum(int(np.asarray(v).nbytes) for v in batch.values())
+    if cuda:
+        torch.cuda.synchronize(device)
+
+    # host_epoch: the epoch the host thread has ready (or failed), if any
+    state: Dict[str, Any] = {"batches": batches, "fresh_epochs": 1, "stale_epochs": 0,
+                             "host_epoch": None}
+    host_next: Dict[str, Any] = {"epoch": None, "batches": None}
+    stop, wake, ready = threading.Event(), threading.Event(), threading.Event()
+
+    def producer():
+        # the host side (decode + augment) of the next epoch; the copies to
+        # the card run on the consumer's thread between its yields
+        e = 1
+        while not stop.is_set():
+            try:
+                hb = [select(b) for b in host_loader(e)]
+            except BaseException as exc:  # noqa: BLE001 - raised at the swap
+                host_next.update(epoch=e, batches=exc)
+                state["host_epoch"] = e
+                ready.set()
+                return
+            host_next.update(epoch=e, batches=hb)
+            state["host_epoch"] = e
+            ready.set()
+            wake.wait()  # taken: go augment the epoch after it
+            wake.clear()
+            e += 1
+
+    if refresh:
+        threading.Thread(target=producer, daemon=True, name=f"dr-refresh-{name}").start()
+    elif hasattr(loader, "close"):
+        loader.close()
+
+    def replay(epoch: int) -> Iterator[Dict[str, Any]]:
+        cur = state["batches"]
+        staging = None
+        if refresh and epoch > 0:
+            if ready.is_set() and host_next["epoch"] is not None:
+                staging = host_next["batches"]
+                if isinstance(staging, BaseException):
+                    raise staging
+                state["fresh_epochs"] += 1
+            else:
+                state["stale_epochs"] += 1
+        order = np.arange(len(cur))
+        if reshuffle and epoch > 0:
+            np.random.default_rng(seed + epoch).shuffle(order)
+        stream = torch.cuda.Stream(device) if cuda and staging is not None else None
+        staged: List[Dict[str, Any]] = []
+        pending = None  # (batch, event) of the copy in flight
+
+        def finish(p):
+            if p is not None:
+                if p[1] is not None:
+                    p[1].synchronize()
+                staged.append(p[0])
+
+        def start(host_batch):
+            if stream is None:
+                return to_device(host_batch), None
+            with torch.cuda.stream(stream):
+                b = to_device(host_batch, pin=True)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+            return b, ev
+
+        for n, i in enumerate(order):
+            if staging is not None and n < len(staging):
+                finish(pending)  # one copy in flight at a time
+                pending = start(staging[n])
+            yield cur[int(i)]
+        if staging is not None:
+            finish(pending)
+            for n in range(len(staged), len(staging)):  # a longer new epoch
+                finish(start(staging[n]))
+            if stream is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_stream(stream)
+                for b in staged:
+                    for v in b.values():
+                        v.record_stream(current)
+            state["batches"] = staged
+            state["host_epoch"] = None
+            host_next.update(epoch=None, batches=None)
+            ready.clear()
+            wake.set()  # let the producer start the following epoch
+
+    def close():
+        stop.set()
+        wake.set()
+        if hasattr(loader, "close"):
+            loader.close()
+
+    replay.close = close
+    replay.total_bytes = total * (2 if refresh else 1)
+    replay.steps_per_epoch = getattr(loader, "steps_per_epoch", len(batches))
+    replay.stats = state
+    replay.per_rank = shard is not None or getattr(loader, "per_rank", False)
+    if name:
+        print(f"[device-resident] {name}: staged {len(batches)} batches "
+              f"({total / 2**20:.0f} MiB) on {device}"
+              + (" [refresh double-buffer]" if refresh else ""), flush=True)
+    return replay

@@ -13,6 +13,11 @@ weight bridge carries a JAX variable tree across. ``model.train()`` is the
 JAX package's ``train=True`` for the BatchNorms (batch statistics, running
 statistics moved) and IR-Net's dropout, the frozen trunk's included;
 ``face_logits(train=True)`` also moves the margin EMA.
+
+Under a (data, model) mesh (``set_mesh``, which ``parallel.mesh.
+shard_params`` calls) ``face_kernel`` is this rank's block of classes, every
+BatchNorm reduces over the data axis, and ``face_logits`` returns this
+rank's columns of the logits.
 """
 
 from __future__ import annotations
@@ -25,12 +30,13 @@ from torch import nn
 from prpe_tpu_torch.core.config import TASKS, CombinedModelConfig
 from prpe_tpu_torch.core.device import resolve_device
 from prpe_tpu_torch.nn.adapters import AdaFaceAdapter, VitPoseAdapter, YoloAdapter
-from prpe_tpu_torch.nn.common import materialize
+from prpe_tpu_torch.nn.common import materialize, set_sync_group
 from prpe_tpu_torch.nn.irnet import build_irnet
 from prpe_tpu_torch.nn.resnet import ResNetTrunk
 from prpe_tpu_torch.nn.vit import ViTPose
 from prpe_tpu_torch.nn.yolo import YOLO
 from prpe_tpu_torch.ops import margin
+from prpe_tpu_torch.parallel.collectives import copy_to_group
 
 
 class CombinedModel(nn.Module):
@@ -48,6 +54,8 @@ class CombinedModel(nn.Module):
             raise ValueError(f"face input size {cfg.face.input_size} must be square")
         dev = resolve_device(device)
         det = cfg.detection
+        self.mesh = None
+        self.class_offset = 0  # the first class of this rank's face_kernel
         with torch.device("meta"):
             self.backbone = ResNetTrunk(cfg.backbone_stages, cfg.remat_backbone, dtype)
             self.yolo_person_adapter = YoloAdapter(det.adapter_size)
@@ -77,6 +85,22 @@ class CombinedModel(nn.Module):
         self.margin_mean.copy_(state.batch_mean)
         self.margin_std.copy_(state.batch_std)
 
+    def set_mesh(self, mesh) -> None:
+        """Run under ``mesh``: BatchNorm statistics over its data axis, the
+        face logits over this rank's classes (``face_kernel`` already cut to
+        them)."""
+        self.mesh = mesh
+        set_sync_group(self, mesh.data_group)
+        self.class_offset = mesh.class_range(self.config.face.num_classes)[0]
+
+    @property
+    def model_group(self):
+        return None if self.mesh is None else self.mesh.model_group
+
+    @property
+    def data_group(self):
+        return None if self.mesh is None else self.mesh.data_group
+
     # ------------------------------------------------------------------ #
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """Shared trunk: (B, H, W, 3) -> (B, H/32, W/32, 2048)."""
@@ -94,14 +118,20 @@ class CombinedModel(nn.Module):
         return self.ada_face(self.ada_face_adapter(self.features(x)))
 
     def face_logits(self, x: torch.Tensor, labels: torch.Tensor, train: bool = True) -> torch.Tensor:
-        """AdaFace logits (B, num_classes) in fp32. ``train=True`` moves the
-        margin EMA buffers first and computes the margin from them."""
+        """AdaFace logits (B, num_classes) in fp32 (float64 in a float64
+        model; this rank's classes under
+        a mesh). ``train=True`` moves the margin EMA buffers first and
+        computes the margin from them. The embeddings enter each class
+        shard through ``copy_to_group``, so that the trunk gets the gradient
+        of every shard."""
         face = self.config.face
         emb, norms = self.embed_face(x)
+        acc = torch.promote_types(emb.dtype, torch.float32)
         logits, state = margin.adaface_logits(
-            self.face_kernel.float(), emb.float(), norms.float(), labels,
-            margin.MarginState(self.margin_mean, self.margin_std),
-            m=face.m, h=face.h, s=face.s, t_alpha=face.t_alpha, update_stats=train)
+            self.face_kernel.to(acc), copy_to_group(emb.to(acc), self.model_group),
+            norms.to(acc), labels, margin.MarginState(self.margin_mean, self.margin_std),
+            m=face.m, h=face.h, s=face.s, t_alpha=face.t_alpha, update_stats=train,
+            class_offset=self.class_offset, group=self.data_group)
         if train:
             with torch.no_grad():
                 self.margin_mean.copy_(state.batch_mean)

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from prpe_tpu_torch.parallel.collectives import all_reduce_
+
 
 def fast_gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU: exact erf in fp32, tanh-approximate in bf16 (the JAX package's
@@ -43,11 +45,14 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics and normalisation; the result is cast
-    back to the input dtype (flax ``LayerNorm(dtype=...)`` semantics)."""
+    """LayerNorm with fp32 statistics and normalisation (float64 stays
+    float64); the result is cast back to the input dtype (flax
+    ``LayerNorm(dtype=...)`` semantics)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        y = F.layer_norm(x.to(acc), self.normalized_shape, self.weight.to(acc),
+                         self.bias.to(acc), self.eps)
         return y.to(x.dtype)
 
 
@@ -56,17 +61,32 @@ class _BatchStatsNorm(torch.autograd.Function):
     E[x^2] - E[x]^2 (clamped at 0) reduced in fp32 (float64 stays float64)
     over every axis but ``dim``; ``(x - mean) * (rsqrt(var + eps) * weight)
     + bias`` in that precision, cast to the input dtype. Only x and the per-channel statistics are kept
-    for the backward, which is the analytic one of that expression."""
+    for the backward, which is the analytic one of that expression.
+
+    With a process ``group`` (the mesh's data axis) the statistics are those
+    of the global batch, as under GSPMD: the forward all-reduces the
+    per-channel sums of x and x^2 with the element count, the backward the
+    sums of dy and dy * x_hat (SyncBatchNorm)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, dim: int, eps: float):
+    def forward(ctx, x, weight, bias, dim: int, eps: float, group=None):
         dims = [d for d in range(x.dim()) if d != dim]
         shape = [1] * x.dim()
         shape[dim] = -1
         acc = torch.promote_types(x.dtype, torch.float32)
         xf = x.to(acc)
-        mean = xf.mean(dims)
-        var_raw = (xf * xf).mean(dims) - mean * mean
+        if group is None:
+            count = None
+            mean = xf.mean(dims)
+            var_raw = (xf * xf).mean(dims) - mean * mean
+        else:
+            c = x.shape[dim]
+            sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                              xf.new_full((1,), x.numel() // c)])
+            all_reduce_(sums, group)
+            count = sums[-1]
+            mean = sums[:c] / count
+            var_raw = sums[c:2 * c] / count - mean * mean
         del xf
         var = var_raw.clamp(min=0.0)
         rstd = torch.rsqrt(var + eps)
@@ -75,7 +95,7 @@ class _BatchStatsNorm(torch.autograd.Function):
         if bias is not None:
             y = y + bias.to(acc).view(shape)
         ctx.save_for_backward(x, weight, mean, rstd, var_raw > 0)
-        ctx.dim, ctx.has_bias = dim, bias is not None
+        ctx.dim, ctx.has_bias, ctx.group, ctx.count = dim, bias is not None, group, count
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -96,11 +116,19 @@ class _BatchStatsNorm(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:
             dxhat = g if weight is None else g * weight.to(mean.dtype).view(shape)
+            if ctx.group is None:
+                dxhat_mean = dxhat.mean(dims)
+                dxhat_xhat_mean = (dxhat * xhat).mean(dims)
+            else:
+                c = mean.shape[0]
+                sums = all_reduce_(torch.cat([dxhat.sum(dims), (dxhat * xhat).sum(dims)]),
+                                   ctx.group)
+                dxhat_mean, dxhat_xhat_mean = sums[:c] / ctx.count, sums[c:] / ctx.count
             # a clamped variance is a constant: no gradient through it
-            var_term = (dxhat * xhat).mean(dims) * var_live
-            dx = (dxhat - dxhat.mean(dims).view(shape) - xhat * var_term.view(shape))
+            var_term = dxhat_xhat_mean * var_live
+            dx = (dxhat - dxhat_mean.view(shape) - xhat * var_term.view(shape))
             dx = (dx * rstd.view(shape)).to(x.dtype)
-        return dx, dweight, dbias, None, None
+        return dx, dweight, dbias, None, None, None
 
 
 class BatchNorm(nn.Module):
@@ -116,7 +144,9 @@ class BatchNorm(nn.Module):
     **biased** batch variance and flax's ``momentum`` (0.97 in ``ConvBN``,
     0.9 elsewhere). ``freeze_stats`` holds the running statistics, so that
     a recomputed forward (gradient checkpointing) moves them once only.
-    ``dim`` is the channel axis.
+    ``dim`` is the channel axis. ``sync_group`` (the mesh's data axis, set
+    by ``set_sync_group``) makes the batch statistics those of the global
+    batch, so the running statistics come out equal on every rank.
     """
 
     def __init__(self, channels: int, eps: float, affine: bool = True, dim: int = 1,
@@ -126,6 +156,7 @@ class BatchNorm(nn.Module):
         self.dim = dim
         self.momentum = momentum
         self.freeze_stats = False
+        self.sync_group = None
         if affine:
             self.weight = nn.Parameter(torch.empty(channels))
             self.bias = nn.Parameter(torch.empty(channels))
@@ -137,7 +168,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias, self.dim, self.eps)
+            y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias, self.dim, self.eps,
+                                                 self.sync_group)
             if not self.freeze_stats:
                 with torch.no_grad():
                     m = self.momentum
@@ -171,12 +203,18 @@ class Dropout(nn.Module):
     """flax ``nn.Dropout`` in train mode: keep each element with probability
     1 - ``rate`` and scale the kept ones by 1 / (1 - ``rate``); the identity
     in eval mode. The mask is drawn from ``generator``, which the caller
-    sets (the train step does): a train-mode forward without one raises."""
+    sets (the train step does): a train-mode forward without one raises.
+
+    ``rows`` (start, total), when set, says that this input holds rows
+    start ... of a global batch of ``total``: the mask is drawn for the
+    whole global batch and this block of it kept, so that every data rank
+    draws what one process would (``set_dropout_rows``)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator = None
+        self.rows = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -186,8 +224,29 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise RuntimeError("Dropout in train mode needs a torch.Generator: set .generator")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        if self.rows is None:
+            mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        else:
+            start, total = self.rows
+            mask = (torch.rand((total, *x.shape[1:]), generator=self.generator,
+                               device=x.device) < keep)[start:start + x.shape[0]]
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_sync_group(model: nn.Module, group) -> None:
+    """Every ``BatchNorm`` of ``model`` on the statistics of ``group``'s
+    global batch (None: this process's batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.sync_group = group
+
+
+def set_dropout_rows(model: nn.Module, rows) -> None:
+    """Every ``Dropout`` of ``model`` draws for rows ``(start, total)`` of a
+    global batch (None: for its input alone)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rows = rows
 
 
 class ConvBN(nn.Module):

@@ -148,7 +148,9 @@ class IRNet(nn.Module):
             x = getattr(self, f"body{i}")(x)
         x = self.dropout(self.output_bn(x)).flatten(1)  # (c, h, w) order
         x = self.output_bn1d(self.output_linear(x))
-        norm = torch.linalg.vector_norm(x.float(), dim=1, keepdim=True).clamp(min=1e-12)
+        # the norm in fp32 at least (a float64 model's in float64)
+        norm = torch.linalg.vector_norm(x.to(torch.promote_types(x.dtype, torch.float32)),
+                                        dim=1, keepdim=True).clamp(min=1e-12)
         return x / norm.to(x.dtype), norm
 
 

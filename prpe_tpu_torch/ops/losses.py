@@ -5,6 +5,10 @@ losses (BCE, softmax cross-entropy, QFL, VFL, focal).
 
 Dense masked ops with static shapes, as in the JAX package: where the
 reference gathers foreground anchors, these multiply by a mask.
+
+``group`` (the mesh's data axis) makes each normaliser that of the global
+batch, as under GSPMD: each rank's loss is then its share of the global
+loss, and the shares add up to it. ``None`` is one process.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ from prpe_tpu_torch.ops.assigner import assign
 from prpe_tpu_torch.ops.boxes import ciou, cxcywh_to_xyxy
 from prpe_tpu_torch.ops.heatmap import coco_sigmas
 from prpe_tpu_torch.ops.nms import topk_stable
+from prpe_tpu_torch.parallel.collectives import (
+    all_reduce_, group_size, vocab_parallel_cross_entropy,
+)
 
 
 # ------------------------------------------------------------ classification
@@ -27,8 +34,13 @@ def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
     return logits.clamp(min=0.0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
 
 
-def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Cross-entropy against int labels: (..., C) x (...,) -> (...,)."""
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, class_offset: int = 0,
+                          group=None) -> torch.Tensor:
+    """Cross-entropy against int labels: (..., C) x (...,) -> (...,). With a
+    ``group`` (the mesh's model axis) the logits are this rank's classes
+    from ``class_offset`` on, and the log-sum-exp runs over every rank's."""
+    if group is not None:
+        return vocab_parallel_cross_entropy(logits, labels, class_offset, group)
     logz = torch.logsumexp(logits, dim=-1)
     true_logit = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return logz - true_logit
@@ -90,7 +102,7 @@ def yolo_detection_loss(level_outputs: Sequence[torch.Tensor], gt_labels: torch.
                         strides: Sequence[int] = (8, 16, 32), reg_max: int = 16,
                         box_gain: float = 7.5, cls_gain: float = 0.5, dfl_gain: float = 1.5,
                         assigner_top_k: int = 10, assigner_alpha: float = 0.5,
-                        assigner_beta: float = 6.0) -> DetectionLoss:
+                        assigner_beta: float = 6.0, group=None) -> DetectionLoss:
     """The YOLOv11 training loss, in fp32.
 
     ``level_outputs``: per-level NHWC maps (B, H_l, W_l, 4 * reg_max + nc);
@@ -120,7 +132,8 @@ def yolo_detection_loss(level_outputs: Sequence[torch.Tensor], gt_labels: torch.
                       num_classes=num_classes, top_k=assigner_top_k, alpha=assigner_alpha,
                       beta=assigner_beta)
     target_bboxes, target_scores, fg_mask = assigned
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    # the global normaliser: summed over the data ranks before the clamp
+    target_scores_sum = all_reduce_(target_scores.sum(), group).clamp(min=1.0)
 
     loss_cls = bce_with_logits(pred_scores, target_scores).sum() / target_scores_sum
 
@@ -143,11 +156,12 @@ def yolo_detection_loss(level_outputs: Sequence[torch.Tensor], gt_labels: torch.
 
 def joints_mse_loss(pred: torch.Tensor, target: torch.Tensor, target_weight: torch.Tensor, *,
                     use_target_weight: bool = True, use_ohkm: bool = True, ohkm_topk: int = 8,
-                    loss_weight: float = 1.0) -> torch.Tensor:
+                    loss_weight: float = 1.0, group=None) -> torch.Tensor:
     """OKS-sigma-weighted heatmap MSE with online hard keypoint mining:
     ``pred`` / ``target`` (B, K, H, W), ``target_weight`` (B, K). The hard
     keypoints are the top ``ohkm_topk`` per image, ties to the lower index."""
     b, k = pred.shape[:2]
+    total = b * group_size(group)
     kw = 1.0 / (coco_sigmas(pred.dtype, pred.device) + 1e-8)
     kw = kw / kw.mean()
     per_joint = ((pred - target) ** 2).reshape(b, k, -1).mean(-1)  # (B, K)
@@ -156,14 +170,14 @@ def joints_mse_loss(pred: torch.Tensor, target: torch.Tensor, target_weight: tor
     if use_ohkm:
         _, idx = topk_stable(per_joint.detach(), ohkm_topk)
         mask = torch.nn.functional.one_hot(idx, k).to(pred.dtype).sum(1)  # (B, K)
-        loss = (per_joint * mask).sum() / (b * ohkm_topk)
+        loss = (per_joint * mask).sum() / (total * ohkm_topk)
     else:
-        loss = per_joint.mean()
+        loss = per_joint.mean() if group is None else per_joint.sum() / (total * k)
     return loss * loss_weight
 
 
 def oks_loss(pred_coords: torch.Tensor, target_coords: torch.Tensor, target_vis: torch.Tensor,
-             areas: torch.Tensor, *, loss_weight: float = 1.0) -> torch.Tensor:
+             areas: torch.Tensor, *, loss_weight: float = 1.0, group=None) -> torch.Tensor:
     """Negative-log object keypoint similarity: coords (B, K, 2) normalised,
     ``target_vis`` (B, K), ``areas`` (B,)."""
     sig = coco_sigmas(pred_coords.dtype, pred_coords.device)
@@ -173,15 +187,20 @@ def oks_loss(pred_coords: torch.Tensor, target_coords: torch.Tensor, target_vis:
     vis = (target_vis > 0).to(pred_coords.dtype)
     loss = -torch.log((oks * vis).clamp(min=1e-8))
     num_vis = vis.sum(1).clamp(min=1.0)
-    return ((loss * vis).sum(1) / num_vis).mean() * loss_weight
+    per_image = (loss * vis).sum(1) / num_vis
+    if group is not None:
+        return per_image.sum() / (per_image.shape[0] * group_size(group)) * loss_weight
+    return per_image.mean() * loss_weight
 
 
 def pck_accuracy(pred_coords: torch.Tensor, target_coords: torch.Tensor,
                  target_vis: torch.Tensor, areas: torch.Tensor, *,
-                 alpha: float = 0.2) -> torch.Tensor:
+                 alpha: float = 0.2, group=None) -> torch.Tensor:
     """PCK at alpha * sqrt(area): the share of (image, keypoint) slots that
     are visible and within the threshold. Returns a scalar."""
     threshold = alpha * areas.clamp(min=0.0).sqrt()[:, None]  # (B, 1)
     dists = torch.linalg.vector_norm(pred_coords - target_coords, dim=-1)  # (B, K)
     correct = (dists < threshold) & (target_vis > 0)
+    if group is not None:
+        return correct.float().sum() / (correct.numel() * group_size(group))
     return correct.float().mean()

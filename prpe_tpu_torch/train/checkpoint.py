@@ -14,6 +14,14 @@ save leaves either the old file or the new one, plus at most a ``*.tmp*``
 leftover that the next save clears and ``latest`` / ``restore`` ignore.
 ``latest`` falls back from ``meta.json`` to what is on disk (newest
 ``epoch*`` first, then ``best_*``) when the meta file is torn or behind.
+
+Under a mesh (orbax saves the sharded arrays in JAX) every rank takes part
+in a save, which gathers the class-split ``face_kernel`` and its optimizer
+and EMA entries to their full (E, C) over the model axis; the primary rank
+alone writes, and a barrier follows, so a save writes one file whatever the
+mesh. A restore reads the full checkpoint on every rank and cuts each split
+tensor to the rank's block, so a checkpoint of any (dp, mp) resumes at any
+other.
 """
 
 from __future__ import annotations
@@ -24,8 +32,11 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from prpe_tpu_torch.parallel import collectives as C
+from prpe_tpu_torch.parallel.mesh import gather_params, slice_params
 from prpe_tpu_torch.train.state import TrainState
 
 _SUFFIX = ".pt"
@@ -85,14 +96,28 @@ def load_model(path) -> Dict[str, torch.Tensor]:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         self.dir = Path(directory).absolute()
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.is_primary
         self._meta_path = self.dir / "meta.json"
 
     def _write(self, path: Path, write) -> None:
-        _atomic_write(path, write)
+        if self.primary:
+            _atomic_write(path, write)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None and self.mesh.world_group is not None:
+            dist.barrier()
+
+    def _full(self, tree):
+        """``tree`` on the CPU with every split tensor at its full size on
+        the primary rank, which writes it; None on the others. The gather is
+        a collective under a mesh: every rank calls this."""
+        tree = gather_params(tree, self.mesh)
+        return _to_cpu(tree) if self.primary else None
 
     def _save_slot(self, name: str, payload) -> Path:
         path = self.dir / (name + _SUFFIX)
@@ -115,9 +140,9 @@ class CheckpointManager:
     def save(self, model: nn.Module, state: TrainState, epoch: int, last_task: str,
              metrics: Optional[Dict[str, float]] = None) -> str:
         name = f"epoch{epoch:04d}_{last_task}"
-        payload = {"model": _to_cpu(model.state_dict()), "step": state.step,
-                   "opt_states": _to_cpu(state.opt_states),
-                   "ema_params": _to_cpu(state.ema_params), "ema_updates": state.ema_updates}
+        payload = {"model": self._full(model.state_dict()), "step": state.step,
+                   "opt_states": self._full(state.opt_states),
+                   "ema_params": self._full(state.ema_params), "ema_updates": state.ema_updates}
         path = self._save_slot(name, payload)
         meta = self._meta()
         meta["checkpoints"].append(
@@ -126,9 +151,10 @@ class CheckpointManager:
         while len(meta["checkpoints"]) > self.keep:  # keep the newest `keep`
             old = meta["checkpoints"].pop(0)
             best_names = {b["name"] for b in meta["best"].values()}
-            if old["name"] not in best_names:
+            if old["name"] not in best_names and self.primary:
                 (self.dir / (old["name"] + _SUFFIX)).unlink(missing_ok=True)
         self._write_meta(meta)
+        self._barrier()
         return str(path)
 
     def update_best(self, task: str, monitor: str, value: float, mode: str, model: nn.Module,
@@ -136,17 +162,21 @@ class CheckpointManager:
         """Save ``best_<task>`` (the model's state dict only: for selection
         and deployment; resuming uses the combined checkpoints) when
         ``value`` beats the task's best under ``mode``. Returns whether it
-        did."""
+        did. Under a mesh the primary rank's meta file decides for every
+        rank."""
         meta = self._meta()
         best = meta["best"].get(task)
         better = (best is None or (mode == "max" and value > best["value"])
                   or (mode == "min" and value < best["value"]))
+        if self.mesh is not None and self.mesh.world_group is not None:
+            better = C.all_gather_object(better, self.mesh.world_group)[0]
         if better:
             name = f"best_{task}"
-            self._save_slot(name, {"model": _to_cpu(model.state_dict())})
+            self._save_slot(name, {"model": self._full(model.state_dict())})
             meta["best"][task] = {"value": float(value), "monitor": monitor, "epoch": epoch,
                                   "name": name, "slim": True}
             self._write_meta(meta)
+            self._barrier()
         return better
 
     # ----------------------------------------------------------------- #
@@ -180,7 +210,8 @@ class CheckpointManager:
         """Load a checkpoint into ``model`` and a new ``TrainState`` (``latest``
         when ``path`` is None; a bare name resolves in this directory). A slim
         ``best_*`` checkpoint keeps ``state`` as it is (fresh optimizers).
-        Returns the state and the checkpoint's meta entry (epoch, last task)."""
+        Returns the state and the checkpoint's meta entry (epoch, last task).
+        Under a mesh each split tensor is cut to this rank's block."""
         if path is None:
             found = self.latest()
             if found is None:
@@ -200,7 +231,8 @@ class CheckpointManager:
                               for task, b in meta["best"].items() if b["name"] == stem), {})
             path = p
         device = next(model.parameters()).device
-        payload = torch.load(path, map_location="cpu", weights_only=True)
+        payload = slice_params(torch.load(path, map_location="cpu", weights_only=True),
+                               self.mesh)
         model.load_state_dict(payload["model"])
         if "opt_states" not in payload:  # slim best_* checkpoint
             return state, entry

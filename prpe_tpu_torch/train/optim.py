@@ -9,7 +9,8 @@ optax behaviour is kept:
 
 * ``clip_by_global_norm`` scales by ``max_norm / norm`` only when
   ``norm >= max_norm``, with no epsilon, over the parameters it is given
-  (a task's trainable ones);
+  (a task's trainable ones; under a mesh the norm of the whole split
+  parameters, ``parallel/mesh.py::global_norm``);
 * a schedule is read at the update count before its increment;
 * the one-cycle schedule is optax's cosine one-cycle, not ``OneCycleLR``;
 * ``param_group_scales`` scales the whole update after the optimizer,
@@ -24,7 +25,7 @@ slopes or 1-d parameters) and SGD with Nesterov momentum 0.937.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,15 +59,26 @@ def _no_state(params):
     return ()
 
 
+def sum_of_squares(t: torch.Tensor) -> torch.Tensor:
+    """Sum of the squares of ``t``'s elements in fp32 at least (float64
+    stays float64)."""
+    t = t.to(torch.promote_types(t.dtype, torch.float32))
+    return (t * t).sum()
+
+
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (fp32 scalar)."""
+    """sqrt of the sum of squares of every element (fp32 scalar; float64
+    for float64 tensors)."""
     tensors = list(tensors)
-    return torch.stack([(t.float() * t.float()).sum() for t in tensors]).sum().sqrt()
+    return torch.stack([sum_of_squares(t) for t in tensors]).sum().sqrt()
 
 
-def clip_by_global_norm(max_norm: float) -> Transform:
+def clip_by_global_norm(max_norm: float, norm_fn: Optional[Callable[[Params], torch.Tensor]]
+                        = None) -> Transform:
+    """``norm_fn(named updates)`` gives the norm (default: ``global_norm`` of
+    the tensors as they are)."""
     def update(updates, state, params):
-        norm = global_norm(updates.values())
+        norm = norm_fn(updates) if norm_fn is not None else global_norm(updates.values())
         keep = norm < max_norm
         return {n: torch.where(keep, u, u / norm.to(u.dtype) * max_norm)
                 for n, u in updates.items()}, state
@@ -258,9 +270,11 @@ def decay_mask(name: str, param: torch.Tensor) -> bool:
     return param.dim() > 1
 
 
-def build_optimizer(cfg: OptimConfig) -> Transform:
+def build_optimizer(cfg: OptimConfig, norm_fn: Optional[Callable[[Params], torch.Tensor]] = None
+                    ) -> Transform:
     """clip by global norm -> Adam / AdamW / SGD-Nesterov -> the per-group
-    scales, accumulated over ``cfg.accumulate`` calls."""
+    scales, accumulated over ``cfg.accumulate`` calls. ``norm_fn`` computes
+    the clip's norm (a mesh's, over split parameters)."""
     schedule = build_schedule(cfg)
     if cfg.optimizer == "adam":
         core = chain(scale_by_adam(), scale_by_learning_rate(schedule))
@@ -272,7 +286,7 @@ def build_optimizer(cfg: OptimConfig) -> Transform:
                      trace(0.937, nesterov=True), scale_by_learning_rate(schedule))
     else:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    tx = chain(clip_by_global_norm(cfg.grad_clip_norm), core,
+    tx = chain(clip_by_global_norm(cfg.grad_clip_norm, norm_fn), core,
                *(scale_subtree(name, s) for name, s in cfg.param_group_scales))
     if cfg.accumulate > 1:
         tx = multi_steps(tx, cfg.accumulate)

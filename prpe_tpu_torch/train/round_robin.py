@@ -6,11 +6,20 @@ cycle; each task's monitor picks its best checkpoint; a combined checkpoint
 follows every (epoch, task), and a resume continues with the remaining
 tasks of the epoch it stopped in. Tasks that keep an EMA are evaluated on
 the EMA weights.
+
+Under a (data, model) mesh (``mesh``; the model already sharded by
+``parallel.mesh.shard_params``) every rank runs this loop in step:
+``_put_batch`` gives each step the rank's rows of a global batch (a loader
+that yields them already says so with ``per_rank``), the steps' metrics are
+the global batch's, each eval pass gathers every data rank's host
+predictions before its hook, so the hooks score the whole val split, and
+the primary rank alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Optional
@@ -19,6 +28,8 @@ import torch
 from torch import nn
 
 from prpe_tpu_torch.core.config import CombinedModelConfig, TaskConfig, TrainConfig
+from prpe_tpu_torch.parallel import collectives as C
+from prpe_tpu_torch.parallel import mesh as mesh_lib
 from prpe_tpu_torch.train.checkpoint import CheckpointManager
 from prpe_tpu_torch.train.metrics import MetricsLogger, MetricTracker, WandbSink, setup_logging
 from prpe_tpu_torch.train.optim import build_optimizer
@@ -48,6 +59,12 @@ def _to_host(collected):
     return [(dict(zip(keys, row.tolist())), bs) for row, (_, bs) in zip(table, collected)]
 
 
+def _host_batch(batch):
+    """A host copy of a batch for the eval hooks, which read its labels,
+    boxes and keypoints, not its images."""
+    return _to_host_tree({k: v for k, v in batch.items() if k != "image"})
+
+
 def _to_host_tree(x):
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
@@ -64,21 +81,33 @@ def _to_host_tree(x):
 
 class RoundRobinTrainer:
     def __init__(self, model: nn.Module, model_cfg: CombinedModelConfig, train_cfg: TrainConfig,
-                 task_loaders: Dict[str, Dict[str, Any]], *, log_dir: str = "runs"):
+                 task_loaders: Dict[str, Dict[str, Any]], *, log_dir: str = "runs", mesh=None):
         """``model``: the CombinedModel, on its device; ``task_loaders``: per
         task, ``train`` (epoch -> iterable of batches) and optional ``val``
-        and ``eval_hook``."""
+        and ``eval_hook``; ``mesh``: the (data, model) mesh the model is
+        sharded over, or None."""
         self.model = model
         self.model_cfg = model_cfg
         self.cfg = train_cfg
-        self.logger = setup_logging(log_dir)
-        self.metrics_logger = MetricsLogger(log_dir)
-        self.ckpt = CheckpointManager(train_cfg.checkpoint_dir, keep=train_cfg.keep_checkpoints)
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.is_primary
+        if self.primary:
+            self.logger = setup_logging(log_dir)
+            self.metrics_logger = MetricsLogger(log_dir)
+        else:  # the other ranks log warnings only, and write no file
+            self.logger = logging.getLogger(f"prpe_tpu_torch.rank{torch.distributed.get_rank()}")
+            self.logger.setLevel(logging.WARNING)
+            self.logger.propagate = False
+            self.metrics_logger = None
+        self.ckpt = CheckpointManager(train_cfg.checkpoint_dir, keep=train_cfg.keep_checkpoints,
+                                      mesh=mesh)
         device = next(model.parameters()).device
 
         tasks = train_cfg.tasks
-        # one optimizer per task over that task's trainable parameters
-        self.optimizers = {t.name: build_optimizer(t.optim) for t in tasks}
+        # one optimizer per task over that task's trainable parameters; the
+        # clip's norm covers the whole class-split face_kernel
+        norm_fn = None if mesh is None else (lambda u: mesh_lib.global_norm(u, mesh))
+        self.optimizers = {t.name: build_optimizer(t.optim, norm_fn) for t in tasks}
         self.state = create_train_state(
             model, self.optimizers, {t.name: trainable_params(model, t.name, t.trainable)
                                      for t in tasks},
@@ -97,11 +126,27 @@ class RoundRobinTrainer:
                 eval_hook=loaders.get("eval_hook"),
             )
         self.wandb = {t.name: WandbSink(t.wandb_project, run_name=f"round_robin_{t.name}")
-                      for t in tasks if t.wandb_project}
+                      for t in tasks if t.wandb_project and self.primary}
         self.start_epoch = 0
         self._resume_task_index = 0  # first task to run at start_epoch
         self._generator = torch.Generator(device=device)
         self._generator.manual_seed(train_cfg.seed)
+
+    # ----------------------------------------------------------------- #
+    def _put_batch(self, batch, loader=None):
+        """This data rank's rows of a global host batch (the
+        DistributedSampler + DDP scatter equivalent); a batch of a loader
+        marked ``per_rank`` holds them already, and without a mesh the
+        batch is the step's."""
+        if self.mesh is None or getattr(loader, "per_rank", False):
+            return batch
+        return mesh_lib.shard_batch(batch, self.mesh)
+
+    def _gather(self, items):
+        """Every data rank's list of host items, in rank order."""
+        if self.mesh is None or self.mesh.data_group is None:
+            return items
+        return [x for part in C.all_gather_object(items, self.mesh.data_group) for x in part]
 
     # ----------------------------------------------------------------- #
     def resume(self, path: Optional[str] = None) -> None:
@@ -131,8 +176,10 @@ class RoundRobinTrainer:
         collected = []
         log_every = max(1, self.cfg.log_every_steps)
         for i, batch in enumerate(rt.train_loader(epoch)):
+            batch = self._put_batch(batch, rt.train_loader)
             self.state, metrics = rt.train_step(self.state, batch, self._generator)
-            bs = next(iter(batch.values())).shape[0]
+            # rows of the global batch: every data rank's
+            bs = next(iter(batch.values())).shape[0] * (1 if self.mesh is None else self.mesh.dp)
             n_images += bs
             # metrics stay on the device until the epoch ends: one copy
             collected.append((metrics, bs))
@@ -173,17 +220,19 @@ class RoundRobinTrainer:
         outputs, collected = [], []
         with self._ema_weights(rt.config.optim.use_ema):
             for batch in rt.val_loader(epoch):
+                batch = self._put_batch(batch, rt.val_loader)
                 metrics, preds = rt.eval_step(batch)
                 collected.append((metrics, next(iter(batch.values())).shape[0]))
                 # the hooks read numpy: a host copy of the batch, which the
                 # prefetcher may have put on the card
                 if rt.eval_hook is not None:
-                    outputs.append((_to_host_tree(preds), _to_host_tree(batch)))
+                    outputs.append((_to_host_tree(preds), _host_batch(batch)))
         for m, bs in _to_host(collected):
             tracker.update(m, bs)
         means = {f"val/{k}": v for k, v in tracker.means().items()}
         if rt.eval_hook is not None:
-            means.update({f"val/{k}": v for k, v in rt.eval_hook(outputs).items()})
+            # every rank scores the whole val split: equal values everywhere
+            means.update({f"val/{k}": v for k, v in rt.eval_hook(self._gather(outputs)).items()})
         # the reference's monitor names
         if "val/loss" in means:
             means.setdefault("val_loss", means["val/loss"])
@@ -202,7 +251,8 @@ class RoundRobinTrainer:
                 self.logger.info("epoch %d | task %s", epoch, name)
                 metrics = self.train_task_epoch(epoch, name)
                 metrics.update(self.eval_task(epoch, name))
-                self.metrics_logger.log_epoch(epoch, name, metrics)
+                if self.metrics_logger is not None:
+                    self.metrics_logger.log_epoch(epoch, name, metrics)
                 if name in self.wandb:
                     self.wandb[name].log(metrics, step=epoch)
                 history.append({"epoch": epoch, "task": name, **metrics})

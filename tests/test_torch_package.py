@@ -96,10 +96,27 @@ from prpe_tpu_torch.cli import train_yolo
 with tempfile.TemporaryDirectory() as d:
     assert train_yolo.main(["--device", "cpu", "--synthetic", "--input-size", "32",
                             "--batch-size", "2", "--epochs", "1", "--output-dir", d]) == 0
+from prpe_tpu_torch.cli import train as train_cli
+from prpe_tpu_torch.core.dtypes import default_policy
+from prpe_tpu_torch.data.pipeline import device_resident_loader
+from prpe_tpu_torch.parallel import build_mesh, distributed, shard_batch
+assert default_policy(True, "cpu").compute_dtype == torch.float32
+mesh = build_mesh()
+assert shard_batch({{"x": np.zeros((4, 2))}}, mesh)["x"].shape == (4, 2)
+staged = device_resident_loader(lambda e: iter([{{"x": np.ones((2, 3), np.float32)}}]))
+assert [b["x"].shape for b in staged(1)] == [(2, 3)]
+with tempfile.TemporaryDirectory() as d:
+    assert train_cli.main(["--device", "cpu", "--preset", "tiny", "--image-size", "64",
+                           "--batch-size", "2", "--tasks", "pose_estimation", "--epochs", "1",
+                           "--data-parallel", "1", "--person-data-dir", d + "/none",
+                           "--face-data-dir", d + "/none", "--face-rec-data-dir", d + "/none",
+                           "--pose-data-dir", d + "/none", "--component-dir", d + "/none",
+                           "--checkpoint-dir", d + "/ck", "--log-dir", d + "/log"]) == 0
 print("imported", len(mods), "modules")
 """
 # the modules of the combined model, the serving CLIs, the training path,
-# the eval hooks, the data layer, the YOLO trainer and the dataset CLIs
+# the eval hooks, the data layer, the YOLO trainer, the dataset CLIs and the
+# parallel slice
 NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.nn.adapters", "prpe_tpu_torch.ops.margin",
                "prpe_tpu_torch.data.image", "prpe_tpu_torch.cli.infer",
@@ -120,7 +137,10 @@ NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.eval.plots", "prpe_tpu_torch.cli.train_yolo",
                "prpe_tpu_torch.cli.convert_coco", "prpe_tpu_torch.cli.convert_ms1m",
                "prpe_tpu_torch.cli.eval_verification", "prpe_tpu_torch.cli.download_coco",
-               "prpe_tpu_torch.cli.download_models")
+               "prpe_tpu_torch.cli.download_models",
+               "prpe_tpu_torch.core.dtypes", "prpe_tpu_torch.parallel",
+               "prpe_tpu_torch.parallel.distributed", "prpe_tpu_torch.parallel.mesh",
+               "prpe_tpu_torch.parallel.collectives")
 
 
 def test_port_imports_and_runs_without_jax():
@@ -190,6 +210,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--preset", "tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--preset", "tiny", "--data-parallel", "1"])
     from prpe_tpu_torch.cli import eval_verification, train_yolo
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
