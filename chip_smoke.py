@@ -119,7 +119,23 @@ exit on the first fault:
     without the mosaic, the mosaic dataset's host images/s at 0 and 2
     workers, the mAP hook's seconds, the peak memory;
 20. eval_verification: ``cli/eval_verification.py::main`` with IR-50 over
-    64 pairs of 112^2 PNG crops: finite metrics, images/s.
+    64 pairs of 112^2 PNG crops: finite metrics, images/s;
+21. numerics: ``tools/make_numerics_pose_ckpt.py`` trains ViTPose-B in
+    fp32 for 1300 steps, to pck 0.8 (K2 forward and backward), then
+    ``tools/check_cascade_numerics.py bf16`` holds the bf16 cascade against
+    the fp32 one on trained weights (the repository's YOLOv11-n checkpoint
+    in both detector slots, that pose checkpoint, 16 enrolled identities)
+    over 100 scenes, with the same-crop leg over 128 crops under K2, K3 and
+    K4: the report (not judged on its ``pass``) beside the JAX package's,
+    non-vacuous, K1-K4 launched;
+22. convergence: ``tools/run_convergence.py`` at the full preset, batch
+    16 of 640^2, 256 train and 64 val samples a task, 8 epochs, a combined
+    checkpoint every 4, killed 5 s after the first checkpoint and resumed
+    (its datasets written during phase 21):
+    the resumed process starts at the checkpoint, the merged histories
+    hold every epoch once, detection ``val/mAP50`` and pose
+    ``val/kpt_AP`` improve from the first 3 epochs to the last 3, K1 and
+    K2 launched by the resumed process.
 
 Phases 16 (its ranks), the odd shapes of 1, 2, 6, 11 and 18 run together
 after the kernel rows: they time nothing. Every phase prints one JSON line
@@ -2471,6 +2487,210 @@ def phase_eval_verification(device, pairs: int = 64, arch: str = "ir_50",
          metrics=metrics, launches=counts)
 
 
+# the fewest steps of tools/make_numerics_pose_ckpt.py found to reach pck 0.8
+# on the card (1100: 0.708, 1200: 0.774, 1300: 0.928; its default, as the
+# JAX script's, is 1500)
+POSE_CKPT_STEPS = 1300
+JAX_NUMERICS = "runs/r3_numerics/cascade_fp32_vs_bf16.json"
+# the counts the JAX tool's verdict requires non-empty
+NON_VACUOUS = ("person_detections_fp32", "face_pairs_clear_margin", "pose_pairs",
+               "person_confident_fp32", "face_confident_fp32")
+
+
+def phase_numerics(device, steps: int = POSE_CKPT_STEPS, scenes: int = 100,
+                   pose_crops: int = 128, pose_cfg=None, irnet_layers: int = 50,
+                   scene_size: int = 640, min_pairs: int = 50) -> dict:
+    """``tools/make_numerics_pose_ckpt.py`` trains ViTPose-B in fp32 for
+    ``steps`` (K2 forward and backward) into a temporary directory, then
+    ``tools/check_cascade_numerics.py bf16`` holds the bf16 cascade against
+    the fp32 one over ``scenes`` scenes with the trained detector
+    (``runs/torch_numerics/detector_ckpt.npz``) in both detector slots and
+    that pose checkpoint, its same-crop leg over ``pose_crops`` crops under
+    the packed (K2), (B, H, T, D) (K3) and fused (K4) modes. Fails when the
+    pose checkpoint's pck is under 0.8, when a count the JAX tool requires
+    non-empty is 0, when a mode has fewer than ``min_pairs`` same-crop
+    pairs, or when K1, K2, K3 or K4 did not launch; not on ``pass``: the
+    verdict is the finding. Prints the report beside the JAX package's
+    (``runs/r3_numerics``). Returns the launches (pose training, check)."""
+    import io
+    import shutil
+    import tempfile
+
+    from prpe_tpu_torch.core.config import PoseConfig
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.tools import check_cascade_numerics as cn
+    from prpe_tpu_torch.tools import make_numerics_pose_ckpt as mp
+
+    pose_cfg = pose_cfg or PoseConfig()
+    tmp = tempfile.mkdtemp(prefix="prpe_numerics_")
+    log = io.StringIO()
+    try:
+        pose_path = os.path.join(tmp, "pose_ckpt.pt")
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            pck = mp.train_pose_ckpt(steps, 16, 1e-3, pose_path, device=device,
+                                     pose_cfg=pose_cfg)
+        _sync(device)
+        pose_s = time.perf_counter() - t0
+        pose_counts = {k: v for k, v in launches.items() if v}
+        if pck < mp.MIN_PCK:
+            fail(f"numerics: the pose checkpoint reached pck {pck:.3f} in {steps} steps, "
+                 f"under {mp.MIN_PCK}")
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            report = cn.check_bf16(scenes, 4, cn.DETECTOR_NPZ, cn.DETECTOR_NPZ, pose_path,
+                                   pose_crops, out=os.path.join(tmp, "report.json"),
+                                   device=device, scene_size=scene_size, pose_cfg=pose_cfg,
+                                   irnet_layers=irnet_layers)
+        _sync(device)
+        check_s = time.perf_counter() - t0
+        counts = {k: v for k, v in launches.items() if v}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    empty = [k for k in NON_VACUOUS if not report[k]]
+    if empty:
+        fail(f"numerics: the comparison is vacuous, {empty} = 0")
+    few = {m: report[f"pose_same_crop_pairs_{m}"] for m in cn.SAME_CROP_MODES
+           if report[f"pose_same_crop_pairs_{m}"] < min_pairs}
+    if few:
+        fail(f"numerics: fewer than {min_pairs} same-crop pairs: {few}")
+    if not pose_counts.get("mhsa"):
+        fail(f"numerics: the pose training launched {pose_counts}, no K2")
+    missing = [k for k in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa") if not counts.get(k)]
+    if missing:
+        fail(f"numerics: the check launched {counts}, none of {missing}")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), JAX_NUMERICS)) as f:
+        jax_report = json.load(f)
+    emit("numerics", pose_steps=steps, pose_pck=pck, pose_train_s=pose_s, check_s=check_s,
+         verdict_pass=report["pass"], report=report, jax_r3=jax_report,
+         launches_pose_training=pose_counts, launches_check=counts)
+    return {"pose_training": pose_counts, "check": counts}
+
+
+# a tools/run_convergence.py trainer process that writes its launch counts
+# to the path in its first argument when it exits (not when it is killed)
+COUNTING_TRAIN = """import json, sys
+from prpe_tpu_torch.cli import train
+from prpe_tpu_torch.ops.kernels import launches
+path = sys.argv.pop(1)
+try:
+    rc = train.main(sys.argv[1:])
+finally:
+    with open(path, "w") as f:
+        json.dump(dict(launches), f)
+sys.exit(rc)
+"""
+
+
+def start_convergence_data(n_train: int = 256, n_val: int = 64, extra=()):
+    """``tools/make_dataset.py`` (``n_train`` train, ``n_val`` val a task,
+    ``extra`` flags) in a process of its own, writing while the phases
+    before ``convergence`` run -> (temporary root, the process)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="prpe_convergence_")
+    proc = subprocess.Popen([sys.executable, "-m", "prpe_tpu_torch.tools.make_dataset",
+                             os.path.join(tmp, "data"), "--train", str(n_train), "--val",
+                             str(n_val), *extra], stdout=subprocess.DEVNULL)
+    return tmp, proc
+
+
+def phase_convergence(device, prepared, n_train: int = 256, n_val: int = 64, epochs: int = 8,
+                      save_every: int = 4, kill_delay: float = 5.0, batch: int = 16,
+                      flags=("--preset", "full", "--image-size", "640")) -> dict:
+    """``tools/run_convergence.py`` on the datasets that
+    ``start_convergence_data`` writes (``prepared``; ``n_train`` train,
+    ``n_val`` val a task): ``cli/train.py`` with ``flags`` at batch
+    ``batch`` for ``epochs`` epochs, staged on the card, a combined
+    checkpoint every ``save_every`` epochs, killed ``kill_delay`` s after
+    its first checkpoint appears and resumed from ``latest``, all in that
+    temporary directory, deleted afterwards. Fails unless the kill came
+    and one resume finished, the resumed process started where the
+    checkpoint left off, the merged histories hold every epoch once, both
+    detection tasks' ``val/mAP50`` and pose's ``val/kpt_AP`` improved
+    (mean of the last 3 epochs over the first 3), and the resumed process
+    launched K1 and K2. Face recognition is reported, not judged. Returns
+    the resumed process's launches."""
+    import csv
+    import io
+    import shutil
+
+    from prpe_tpu_torch.tools import run_convergence as rc
+
+    if device.type == "cuda":  # the trainers are other processes: release the cache
+        torch.cuda.empty_cache()
+    tmp, proc = prepared
+    log = io.StringIO()
+    train_cmd = rc.train_cmd
+
+    def counting_cmd(args, data, out, log_dir, resume):
+        cmd = train_cmd(args, data, out, log_dir, resume)
+        i = cmd.index("-m")
+        return [cmd[0], "-c", COUNTING_TRAIN, os.path.join(log_dir, "launches.json"),
+                *cmd[i + 2:]]
+
+    try:
+        data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        if proc.wait() != 0:
+            fail(f"convergence: make_dataset exited {proc.returncode}")
+        data_wait_s = time.perf_counter() - t0
+        rc.train_cmd = counting_cmd
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log):
+                rc.run(rc.parse_args([
+                    "--device", str(device), *flags, "--epochs", str(epochs),
+                    "--batch-size", str(batch), "--samples", str(n_train),
+                    "--val-samples", str(n_val), "--save-every", str(save_every),
+                    "--kill-delay", str(kill_delay), "--data", data, "--out", out]))
+        finally:
+            rc.train_cmd = train_cmd
+        run_s = time.perf_counter() - t0
+        with open(os.path.join(out, "resume.json")) as f:
+            resume = json.load(f)
+        with open(os.path.join(out, "summary.json")) as f:
+            summary = json.load(f)
+        curves = {}
+        for task, col in (("person_detection", "val/mAP50"), ("face_detection", "val/mAP50"),
+                          ("face_recognition", "val/acc"), ("pose_estimation", "val/kpt_AP")):
+            with open(os.path.join(out, f"{task}_history.csv")) as f:
+                curves[task] = [float(r[col]) for r in csv.DictReader(f)]
+        phases = resume["phases"]
+        counts = {}
+        if len(phases) == 2 and os.path.exists(os.path.join(out, "phase2_resume",
+                                                            "launches.json")):
+            with open(os.path.join(out, "phase2_resume", "launches.json")) as f:
+                counts = {k: v for k, v in json.load(f).items() if v}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not resume["killed"] or len(phases) != 2 or phases[1]["rc"] != 0:
+        fail(f"convergence: expected one kill and one resume, got {phases}")
+    if not resume["resumed_from_saved_epoch"]:
+        fail(f"convergence: the resumed process did not start at the checkpoint: {phases}")
+    if not resume["contiguous"] or not all(resume["contiguous"].values()):
+        fail(f"convergence: the merged histories skip or repeat an epoch: "
+             f"{resume['contiguous']}")
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    improved = {t: mean(c[-3:]) > mean(c[:3]) for t, c in curves.items()}
+    judged = ("person_detection", "face_detection", "pose_estimation")
+    if not all(improved[t] for t in judged):
+        fail(f"convergence: no improvement from the first 3 epochs to the last 3: {curves}")
+    if not counts.get("nms") or not counts.get("mhsa"):
+        fail(f"convergence: the resumed process launched {counts}")
+    emit("convergence", epochs=epochs, train_samples=n_train, val_samples=n_val, batch=batch,
+         save_every=save_every, kill_delay_s=kill_delay,
+         first_checkpoint_s=resume["first_checkpoint_s"],
+         resumed_from=phases[1]["resumed_from"],
+         first_epoch_after_resume=phases[1]["first_epoch_per_task"], data_wait_s=data_wait_s,
+         run_s=run_s, curves=curves, improved=improved,
+         summary={t: {k: v for k, v in s.items() if k != "curve"} for t, s in summary.items()},
+         launches_resumed=counts)
+    return counts
+
+
 def report_build(logs) -> None:
     """Print each kernel's ``ptxas`` lines (entry, registers, spills, wgmma
     notes) and fail on a spill or a compiler error."""
@@ -2580,6 +2800,15 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     yolo_counts = phase_train_yolo(device)
     phase_eval_verification(device)
+    # the convergence datasets are written while the numerics phase runs
+    prepared = start_convergence_data()
+    try:
+        numerics_counts = phase_numerics(device)
+        convergence_counts = phase_convergence(device, prepared)
+    finally:
+        prepared[1].kill()
+        prepared[1].wait()
+        shutil.rmtree(prepared[0], ignore_errors=True)
 
     src, pallas = "prpe_tpu_torch/csrc/", "prpe_tpu/ops/pallas/"
     row = lambda r: {k: r[k] for k in ROW_KEYS}  # noqa: E731
@@ -2603,6 +2832,8 @@ def main() -> int:
              launches_device_resident=resident_counts["nms"],
              launches_parallel_per_rank={k: [r["nms"] for r in v]
                                          for k, v in parallel_counts.items()},
+             launches_numerics=numerics_counts["check"]["nms"],
+             launches_convergence_resumed=convergence_counts["nms"],
              **row(nms_rows[0]),
              **suffixed(nms_rows[1], "_k1024")),
         dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
@@ -2617,6 +2848,9 @@ def main() -> int:
              launches_parallel_reference_pose_step_per_rank={
                  k: [r["pose_estimation"]["mhsa"] for r in v]
                  for k, v in parallel_ref_counts.items()},
+             launches_numerics_pose_training=numerics_counts["pose_training"]["mhsa"],
+             launches_numerics=numerics_counts["check"]["mhsa"],
+             launches_convergence_resumed=convergence_counts["mhsa"],
              **attn_keys(mhsa_rows),
              **grad_keys("packed")),
     ]
@@ -2626,12 +2860,15 @@ def main() -> int:
                                 ("bh", "pallas_bh", 76)):
         kernels.append(dict(name=f"mhsa_bhtd[{variant}]", route="cuda", source=src + "mhsa.cu",
                             replaces=f"{pallas}attention_kernel.py:{line}", attn_mode=mode,
-                            launches=mode_counts[mode]["mhsa_bhtd"], **attn_keys(bhtd_rows),
+                            launches=mode_counts[mode]["mhsa_bhtd"],
+                            launches_numerics=numerics_counts["check"]["mhsa_bhtd"],
+                            **attn_keys(bhtd_rows),
                             **grad_keys("bhtd")))
     kernels.append(dict(name="ln_mhsa", route="cuda", source=src + "ln_mhsa.cu",
                         replaces=pallas + "attention_kernel.py:115", attn_mode="pallas_lnfused",
                         launches=counts["pallas_lnfused"]["ln_mhsa"],
                         launches_f32=counts_f32["pallas_lnfused"]["ln_mhsa"],
+                        launches_numerics=numerics_counts["check"]["ln_mhsa"],
                         composed_library_ms=ln_rows[0]["composed_library_ms"],
                         composed_library_ms_b128=ln_rows[1]["composed_library_ms"],
                         composed_library_ms_f32=ln_rows[2]["composed_library_ms"],

@@ -40,9 +40,11 @@ import torch
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def build_task_loaders(args, cfg, device=None, mesh=None):
-    """Per task, its train and val loaders and eval hook: the dataset
-    readers where the task's directory holds a dataset (batches prefetched
+def build_task_loaders(args, cfg, device=None, mesh=None, tasks=None):
+    """Per task of ``tasks`` (default: all four), its train and val loaders
+    and eval hook; no other task's loaders are built, since a loader forks
+    its decode workers when it is built. The dataset readers where the
+    task's directory holds a dataset (batches prefetched
     to ``device``; under a ``mesh`` this data rank's ``batch / dp`` rows of
     each global batch, from its data rank's stride of the samples, which
     the ranks of one model group share), else deterministic synthetic
@@ -50,6 +52,7 @@ def build_task_loaders(args, cfg, device=None, mesh=None):
     CLI: the mAP hook on both detection tasks, synthetic or not; the
     verification and keypoint hooks, and the pose val loader, only with
     their datasets."""
+    from prpe_tpu_torch.core.config import TASKS
     from prpe_tpu_torch.data import pipeline, synthetic
     from prpe_tpu_torch.data.detection import YoloTxtDataset
     from prpe_tpu_torch.data.faces import IdentityFolderDataset
@@ -63,8 +66,6 @@ def build_task_loaders(args, cfg, device=None, mesh=None):
             dataset, args.batch_size // (mesh.dp if mesh else 1), max_samples=max_samples,
             shuffle=train, device=device, num_workers=args.num_workers if train else 0,
             shard=(mesh.data_rank, mesh.dp) if mesh else None)
-
-    loaders = {}
 
     def detection(task, root):
         try:
@@ -82,40 +83,41 @@ def build_task_loaders(args, cfg, device=None, mesh=None):
                     "val": synthetic.make_loader(task, batches_per_epoch=2, seed=9, **kw),
                     "eval_hook": detection_eval_hook(args.image_size)}
 
-    loaders["person_detection"] = detection("person_detection", args.person_data_dir)
-    loaders["face_detection"] = detection("face_detection", args.face_data_dir)
+    def face_recognition():
+        try:
+            ftrain = IdentityFolderDataset(args.face_rec_data_dir, "train", augment=True)
+            fval = IdentityFolderDataset(args.face_rec_data_dir, "val")
+            return {"train": epochs(ftrain, args.max_train_samples, True),
+                    "val": epochs(fval, args.max_val_samples, False),
+                    "eval_hook": face_verification_hook()}
+        except (FileNotFoundError, StopIteration, OSError):
+            print(f"[face_recognition] dataset not found at {args.face_rec_data_dir}; synthetic")
+            kw = dict(batch_size=args.batch_size, image_size=args.image_size,
+                      num_classes=cfg.face.num_classes)
+            return {"train": synthetic.make_loader("face_recognition", batches_per_epoch=8, **kw),
+                    "val": synthetic.make_loader("face_recognition", batches_per_epoch=2, seed=9,
+                                                 **kw)}
 
-    try:
-        ftrain = IdentityFolderDataset(args.face_rec_data_dir, "train", augment=True)
-        fval = IdentityFolderDataset(args.face_rec_data_dir, "val")
-        loaders["face_recognition"] = {"train": epochs(ftrain, args.max_train_samples, True),
-                                       "val": epochs(fval, args.max_val_samples, False),
-                                       "eval_hook": face_verification_hook()}
-    except (FileNotFoundError, StopIteration, OSError):
-        print(f"[face_recognition] dataset not found at {args.face_rec_data_dir}; synthetic")
-        kw = dict(batch_size=args.batch_size, image_size=args.image_size,
-                  num_classes=cfg.face.num_classes)
-        loaders["face_recognition"] = {
-            "train": synthetic.make_loader("face_recognition", batches_per_epoch=8, **kw),
-            "val": synthetic.make_loader("face_recognition", batches_per_epoch=2, seed=9, **kw)}
+    def pose_estimation():
+        try:
+            ptrain = CocoKeypointDataset(args.pose_data_dir, "train", image_size=args.image_size,
+                                         max_instances=cfg.pose.max_instances, augment=True)
+            pval = CocoKeypointDataset(args.pose_data_dir, "val", image_size=args.image_size,
+                                       max_instances=cfg.pose.max_instances)
+            return {"train": epochs(ptrain, args.max_train_samples, True),
+                    "val": epochs(pval, args.max_val_samples, False),
+                    "eval_hook": pose_eval_hook(args.image_size, args.keypoint_thresh)}
+        except (FileNotFoundError, OSError):
+            print(f"[pose_estimation] dataset not found at {args.pose_data_dir}; synthetic")
+            return {"train": synthetic.make_loader("pose_estimation", batches_per_epoch=8,
+                                                   batch_size=args.batch_size,
+                                                   image_size=args.image_size,
+                                                   max_instances=cfg.pose.max_instances)}
 
-    try:
-        ptrain = CocoKeypointDataset(args.pose_data_dir, "train", image_size=args.image_size,
-                                     max_instances=cfg.pose.max_instances, augment=True)
-        pval = CocoKeypointDataset(args.pose_data_dir, "val", image_size=args.image_size,
-                                   max_instances=cfg.pose.max_instances)
-        loaders["pose_estimation"] = {"train": epochs(ptrain, args.max_train_samples, True),
-                                      "val": epochs(pval, args.max_val_samples, False),
-                                      "eval_hook": pose_eval_hook(args.image_size,
-                                                                  args.keypoint_thresh)}
-    except (FileNotFoundError, OSError):
-        print(f"[pose_estimation] dataset not found at {args.pose_data_dir}; synthetic")
-        loaders["pose_estimation"] = {
-            "train": synthetic.make_loader("pose_estimation", batches_per_epoch=8,
-                                           batch_size=args.batch_size,
-                                           image_size=args.image_size,
-                                           max_instances=cfg.pose.max_instances)}
-    return loaders
+    build = {"person_detection": lambda: detection("person_detection", args.person_data_dir),
+             "face_detection": lambda: detection("face_detection", args.face_data_dir),
+             "face_recognition": face_recognition, "pose_estimation": pose_estimation}
+    return {task: build[task]() for task in TASKS if tasks is None or task in tasks}
 
 
 def close_loaders(loaders) -> None:
@@ -309,20 +311,21 @@ def stage_on_device(args, loaders, device, mesh) -> int:
 def main(argv=None) -> int:
     args = parse_args(argv)
 
+    from prpe_tpu_torch.core.config import TASKS
     from prpe_tpu_torch.parallel import distributed
 
     device, mesh, started = _setup_mesh(args)
     loaders = {}
     try:
         cfg = model_config(args)
-        loaders = build_task_loaders(args, cfg, device, mesh=mesh)
+        keep = None
         if args.tasks:
             keep = [t.strip() for t in args.tasks.split(",") if t.strip()]
-            unknown = [t for t in keep if t not in loaders]
+            unknown = [t for t in keep if t not in TASKS]
             if unknown:
                 raise SystemExit(f"--tasks: unknown task(s) {unknown}; "
-                                 f"choose from {sorted(loaders)}")
-            loaders = {k: v for k, v in loaders.items() if k in keep}
+                                 f"choose from {sorted(TASKS)}")
+        loaders = build_task_loaders(args, cfg, device, mesh=mesh, tasks=keep)
         if args.device_resident:
             # staged before the model is built: the card's memory is free
             stage_on_device(args, loaders, device, mesh)

@@ -1,7 +1,7 @@
 """Weight bridges into the port's ``state_dict``s.
 
 **From JAX.** :func:`from_jax_variables` carries a flax variable tree of
-the JAX package across. The port's modules carry the flax module names, so
+the JAX package across (:func:`variables_from_npz` reads one saved flat). The port's modules carry the flax module names, so
 a leaf at ``params/<path>/<leaf>`` becomes ``<path>.<torch leaf>`` with
 these layout changes:
 
@@ -84,6 +84,21 @@ def from_jax_variables(variables: Mapping[str, Any]) -> StateDict:
         out[".".join(mods + [_LEAF.get(leaf, leaf)])] = value
     # a copy (scalars stay 0-d; ascontiguousarray would make them 1-d)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in out.items()}
+
+
+def variables_from_npz(path) -> Dict[str, Any]:
+    """A flax variable tree saved flat in an ``.npz`` (one array per leaf,
+    keyed by its ``/``-joined path, e.g. ``params/Conv_0/conv/kernel``) ->
+    the nested dict of numpy arrays that :func:`from_jax_variables` takes."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            *mods, leaf = key.split("/")
+            node = tree
+            for m in mods:
+                node = node.setdefault(m, {})
+            node[leaf] = flat[key]
+    return tree
 
 
 # --------------------------------------------------------------------------

@@ -302,6 +302,14 @@ def bilinear_resize(x: torch.Tensor, out_hw: Tuple[int, int],
     return torch.einsum("oh,bchw,pw->bcop", mh, x, mw)
 
 
+class AdaptiveAvgPool(nn.Module):
+    """Global average pool of an NCHW tensor to (B, C, 1, 1)
+    (``torch.nn.AdaptiveAvgPool2d((1, 1))``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(2, 3), keepdim=True)
+
+
 def max_pool(x: torch.Tensor, window: int, strides: int = 1, padding: int = 0) -> torch.Tensor:
     """Max pool NCHW; the padding acts as -inf, as in the JAX package."""
     return F.max_pool2d(x, window, strides, padding)

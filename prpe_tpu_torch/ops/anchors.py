@@ -25,6 +25,11 @@ def make_anchors(level_hw: Sequence[Tuple[int, int]], strides: Sequence[int],
     return torch.cat(pts, dim=0), torch.cat(strs, dim=0)
 
 
+def level_shapes(image_size: int, strides: Sequence[int] = (8, 16, 32)):
+    """FPN level (H, W) of a square input of ``image_size``."""
+    return [(image_size // s, image_size // s) for s in strides]
+
+
 def dfl_decode(pred_dist: torch.Tensor, anchor_points: torch.Tensor,
                reg_max: int = 16) -> torch.Tensor:
     """Distribution Focal Loss decode: softmax over ``reg_max`` bins per side,

@@ -19,6 +19,12 @@ def cxcywh_to_xyxy(box: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
 
 
+def xyxy_to_cxcywh(box: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h)."""
+    x1, y1, x2, y2 = box.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
+
+
 def box_area(box: torch.Tensor) -> torch.Tensor:
     """Area of xyxy boxes -> (...,)."""
     w = (box[..., 2] - box[..., 0]).clamp(min=0.0)

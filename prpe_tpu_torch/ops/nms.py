@@ -86,6 +86,18 @@ def _nms_batched(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tenso
     return det
 
 
+def nms_single(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor, *,
+               conf_threshold: float = 0.001, iou_threshold: float = 0.65, max_det: int = 300,
+               pre_nms_top_k: int = 1024, max_wh: float = 7680.0) -> Detections:
+    """NMS of one image whose candidates already carry one class and score
+    each: ``boxes`` (N, 4) xyxy, ``scores`` (N,), ``classes`` (N,) int ->
+    :class:`Detections` of length ``max_det``."""
+    det = _nms_batched(boxes[None], scores[None], classes[None],
+                       conf_threshold=conf_threshold, iou_threshold=iou_threshold,
+                       max_det=max_det, pre_nms_top_k=pre_nms_top_k, max_wh=max_wh)
+    return Detections(*(x[0] for x in det))
+
+
 def non_max_suppression(outputs: torch.Tensor, *, conf_threshold: float = 0.001,
                         iou_threshold: float = 0.65, max_det: int = 300,
                         pre_nms_top_k: int = 1024, max_wh: float = 7680.0) -> Detections:

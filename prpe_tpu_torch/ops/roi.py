@@ -52,3 +52,11 @@ def crop_and_resize_batch(images: torch.Tensor, boxes: torch.Tensor,
     img_k = images[box_image_idx]  # (K, H, W, C)
     rows = torch.einsum("kih,khwc->kiwc", wy, img_k)
     return torch.einsum("kjw,kiwc->kijc", wx, rows)
+
+
+def crop_and_resize(image: torch.Tensor, boxes: torch.Tensor,
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """K crops of one image: ``image`` (H, W, C), ``boxes`` (K, 4) xyxy
+    pixels -> (K, h, w, C)."""
+    idx = torch.zeros(boxes.shape[0], dtype=torch.int64, device=boxes.device)
+    return crop_and_resize_batch(image[None], boxes, idx, out_hw)

@@ -115,8 +115,8 @@ with tempfile.TemporaryDirectory() as d:
 print("imported", len(mods), "modules")
 """
 # the modules of the combined model, the serving CLIs, the training path,
-# the eval hooks, the data layer, the YOLO trainer, the dataset CLIs and the
-# parallel slice
+# the eval hooks, the data layer, the YOLO trainer, the dataset CLIs, the
+# parallel slice and the numerics and convergence harness
 NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.nn.adapters", "prpe_tpu_torch.ops.margin",
                "prpe_tpu_torch.data.image", "prpe_tpu_torch.cli.infer",
@@ -140,7 +140,10 @@ NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.cli.download_models",
                "prpe_tpu_torch.core.dtypes", "prpe_tpu_torch.parallel",
                "prpe_tpu_torch.parallel.distributed", "prpe_tpu_torch.parallel.mesh",
-               "prpe_tpu_torch.parallel.collectives")
+               "prpe_tpu_torch.parallel.collectives",
+               "prpe_tpu_torch.tools.scenes", "prpe_tpu_torch.tools.make_numerics_pose_ckpt",
+               "prpe_tpu_torch.tools.check_cascade_numerics",
+               "prpe_tpu_torch.tools.run_convergence", "prpe_tpu_torch.tools.run_face_validation")
 
 
 def test_port_imports_and_runs_without_jax():
@@ -218,6 +221,26 @@ def test_entry_points_default_to_cuda(monkeypatch):
         train_yolo.main(["--synthetic"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         eval_verification.main(["pairs.npz"])
+
+
+def test_harness_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The numerics and convergence tools raise without a GPU unless the
+    caller asks for the CPU; none starts a trainer or writes data first."""
+    from prpe_tpu_torch.tools import (
+        check_cascade_numerics, make_numerics_pose_ckpt, run_convergence, run_face_validation,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = ["--out", str(tmp_path / "out")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_numerics_pose_ckpt.main(["--steps", "1", *out])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        check_cascade_numerics.main(["bf16", "--scenes", "1", *out])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_convergence.main(["--data", str(tmp_path / "data"), *out])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_face_validation.main(["--data", str(tmp_path / "data"), *out])
+    assert not any(tmp_path.iterdir())
 
 
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
