@@ -120,7 +120,19 @@ exit on the first fault:
     workers, the mAP hook's seconds, the peak memory;
 20. eval_verification: ``cli/eval_verification.py::main`` with IR-50 over
     64 pairs of 112^2 PNG crops: finite metrics, images/s;
-21. numerics: ``tools/make_numerics_pose_ckpt.py`` trains ViTPose-B in
+21. harness: the measuring tools of ``prpe_tpu_torch/tools/`` at full
+    geometry, each through its ``main`` in this process with the launch
+    counters at zero: ``bench_reference_torch`` (eager fp32 YOLOv11-n,
+    IR-50, ViTPose-B at batch 128; its JSON is the baseline of)
+    ``bench_cascade`` at batch 128 in the default mode and under
+    ``pallas_lnfused`` (K1 2 and K2 or K4 12 a call, 21 calls),
+    ``bench_train`` (5 steps a task after one, K2 12 a pose step),
+    ``bench_io`` in ``cascade`` (256 packed scenes), ``train`` (128 packed
+    detection samples) and ``png`` (64 PNGs, 2 workers) modes, one
+    ``profile_cascade`` (batch 128), one ``profile_train`` (pose) and
+    ``dump_trace_ops`` on its trace: every stdout JSON parses with the
+    metric names of the repository's scripts;
+22. numerics: ``tools/make_numerics_pose_ckpt.py`` trains ViTPose-B in
     fp32 for 1300 steps, to pck 0.8 (K2 forward and backward), then
     ``tools/check_cascade_numerics.py bf16`` holds the bf16 cascade against
     the fp32 one on trained weights (the repository's YOLOv11-n checkpoint
@@ -128,10 +140,10 @@ exit on the first fault:
     over 100 scenes, with the same-crop leg over 128 crops under K2, K3 and
     K4: the report (not judged on its ``pass``) beside the JAX package's,
     non-vacuous, K1-K4 launched;
-22. convergence: ``tools/run_convergence.py`` at the full preset, batch
+23. convergence: ``tools/run_convergence.py`` at the full preset, batch
     16 of 640^2, 256 train and 64 val samples a task, 8 epochs, a combined
     checkpoint every 4, killed 5 s after the first checkpoint and resumed
-    (its datasets written during phase 21):
+    (its datasets written during phase 22):
     the resumed process starts at the checkpoint, the merged histories
     hold every epoch once, detection ``val/mAP50`` and pose
     ``val/kpt_AP`` improve from the first 3 epochs to the last 3, K1 and
@@ -192,21 +204,11 @@ def emit(phase: str, **numbers) -> None:
 
 
 def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each of
-    ``runs`` back-to-back calls. The card first spins on a sleep kernel so
-    the host can queue the calls ahead of it: launch latency on the host
-    does not count unless the calls cannot be queued fast enough."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(runs + 1)]
-    torch.cuda._sleep(50_000_000)
-    events[0].record()
-    for i in range(runs):
-        fn()
-        events[i + 1].record()
-    torch.cuda.synchronize()
-    return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(runs))
+    """Median device time of one call (``tools/timing.py::time_ms``: CUDA
+    events around each call, queued behind a sleep kernel)."""
+    from prpe_tpu_torch.tools.timing import time_ms as timed
+
+    return timed(fn, torch.device("cuda"), runs=runs, warmup=warmup)
 
 
 def host_us(fn, calls: int = 20, rounds: int = 7) -> float:
@@ -230,19 +232,12 @@ def bound_ms(nbytes: float, ops: float, peak: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-@contextlib.contextmanager
 def attn_mode(mode: str):
-    """``PRPE_ATTN_MODE=mode`` (and no legacy alias) inside the block; the
-    caller's environment afterwards."""
-    saved = {k: os.environ.pop(k, None) for k in ("PRPE_ATTN_MODE", "PRPE_FUSED_ATTENTION")}
-    os.environ["PRPE_ATTN_MODE"] = mode
-    try:
-        yield
-    finally:
-        for k, v in saved.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
+    """``PRPE_ATTN_MODE=mode`` inside the block
+    (``tools/bench_attention.py::attn_mode``)."""
+    from prpe_tpu_torch.tools.bench_attention import attn_mode as mode_ctx
+
+    return mode_ctx(mode)
 
 
 def expected_launches(mode: str, layers: int, nms: int = 0):
@@ -719,30 +714,10 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
 
 
 def profile_top(fn, top: int = 12):
-    """Device time per kernel over one call, from torch.profiler: kernel
-    events only (the aten ops that launch them would count the time twice)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Device time per kernel over one call (``tools/dump_trace_ops.py``)."""
+    from prpe_tpu_torch.tools.dump_trace_ops import profile_top as aggregate
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            rows.append((e.self_device_time_total / 1e3, e.count, e.key[:80]))
-    rows.sort(reverse=True)
-    # the attention kernels of the port (K2 and K3 in either dtype, K4's stage)
-    attention = [r for r in rows if "mhsa_" in r[2] and "_kernel" in r[2]]
-    # K4's LayerNorm and GEMM kernels (either dtype); its attention is the above
-    ln_mhsa = {stage: sum(r[0] for r in rows if any(f"::{p}" in r[2] for p in patterns))
-               for stage, patterns in (("layernorm", ("layernorm_kernel",)),
-                                       ("gemm", ("gemm_f32_kernel", "gemm_bf16_kernel")))}
-    ln_mhsa["attention"] = sum(r[0] for r in attention)
-    return {"kernel_ms": sum(r[0] for r in rows), "launches": sum(r[1] for r in rows),
-            "attention_ms": sum(r[0] for r in attention),
-            "attention_launches": sum(r[1] for r in attention), "ln_mhsa": ln_mhsa,
-            "top": [list(r) for r in rows[:top]]}
+    return aggregate(fn, top=top)
 
 
 # --------------------------------------------------------------- combined ---
@@ -2490,6 +2465,143 @@ def phase_eval_verification(device, pairs: int = 64, arch: str = "ir_50",
 # the fewest steps of tools/make_numerics_pose_ckpt.py found to reach pck 0.8
 # on the card (1100: 0.708, 1200: 0.774, 1300: 0.928; its default, as the
 # JAX script's, is 1500)
+def run_tool(module: str, argv) -> tuple:
+    """``prpe_tpu_torch.tools.<module>.main(argv)`` in this process, every
+    launch counter at zero before it: -> (its stdout, the launches, s)."""
+    import importlib
+    import io
+
+    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+
+    tool = importlib.import_module(f"prpe_tpu_torch.tools.{module}")
+    out = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = tool.main(list(argv))
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    if rc != 0:
+        fail(f"harness: {module} {' '.join(argv)} exited {rc}")
+    return out.getvalue(), counts, time.perf_counter() - t0
+
+
+def json_lines(module: str, text: str, n=None) -> list:
+    """A tool's stdout as JSON: its ``n`` lines, each one object, or (``n``
+    None) its last line after lines of text."""
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    try:
+        records = [json.loads(ln) for ln in (lines if n else lines[-1:])]
+    except (json.JSONDecodeError, IndexError) as e:
+        fail(f"harness: {module} printed no parsable JSON line ({e}): {text[-500:]!r}")
+    if n and len(records) != n:
+        fail(f"harness: {module} printed {len(records)} JSON lines, expected {n}")
+    return records
+
+
+def profile_agrees(prof: dict) -> bool:
+    """A profile's two aggregations (the profiler's kernel rows, the trace's
+    kernels by module) give one device time, and the busy share is a share."""
+    by_module = sum(prof["by_module"].values())
+    return (abs(by_module - prof["kernel_ms"]) <= 0.02 * prof["kernel_ms"]
+            and 0.0 < prof["busy_share"] <= 1.0)
+
+
+def phase_harness(device, root: str) -> dict:
+    """The measuring tools at full geometry, each through its ``main`` with
+    the launch counters at zero before it: ``bench_reference_torch`` (its
+    JSON the baseline of) ``bench_cascade`` at batch 128 in the default
+    mode (K1 2 and K2 12 a call) and under ``pallas_lnfused`` (K1 2, K4
+    12), ``bench_train`` for 5 steps a task (K2 12 a pose step, the warm-up
+    included), ``bench_io`` in ``cascade`` mode on 256 packed scenes, in
+    ``train`` mode on 128 packed detection samples for an epoch and in
+    ``png`` mode on 64 PNGs with 2 workers, one ``profile_cascade`` (batch
+    128, 5 calls) and one ``profile_train`` (pose, 2 steps): each tool's
+    stdout JSON parses with its metric names and every counter moved as
+    the calls it made require. Returns the launches of ``bench_cascade``
+    per mode and of ``bench_train``."""
+    import importlib.util
+
+    rows, counts = {}, {}
+    baseline = os.path.join(root, "reference.json")
+    if importlib.util.find_spec("transformers") is None:
+        # the tool names the missing package and exits; vs_baseline stays null
+        try:
+            run_tool("bench_reference_torch", ["--out", baseline])
+            fail("harness: bench_reference_torch ran without transformers")
+        except SystemExit as e:
+            if "transformers" not in str(e):
+                fail(f"harness: bench_reference_torch exited with {e}")
+            rows["bench_reference_torch"] = dict(missing="transformers", message=str(e))
+        baseline_args = []
+    else:
+        text, c, sec = run_tool("bench_reference_torch", ["--out", baseline])
+        ref = json.loads(text)
+        if not ref["cascade_composite_img_per_sec"] > 0:
+            fail(f"harness: bench_reference_torch composite {ref}")
+        rows["bench_reference_torch"] = dict(seconds=sec, **ref)
+        baseline_args = ["--baseline", baseline]
+    for mode, kernel in (("pallas_packed", "mhsa"), ("pallas_lnfused", "ln_mhsa")):
+        with attn_mode(mode):
+            text, c, sec = run_tool("bench_cascade", baseline_args)
+        rec, = json_lines("bench_cascade", text, 1)
+        if rec["metric"] != "face_gated_pose_cascade_640_throughput" or (
+                rec["vs_baseline"] is None) != (not baseline_args):
+            fail(f"harness: bench_cascade printed {rec}")
+        calls = 21  # a warm-up and 20 timed, well inside PRPE_BENCH_DEADLINE_S
+        want = expected_launches(mode, 12 * calls, nms=2 * calls)
+        if c != want:
+            fail(f"harness: bench_cascade under {mode} launched {c}, expected {want}")
+        counts[f"bench_cascade_{mode}"] = c
+        rows[f"bench_cascade_{mode}"] = dict(seconds=sec, calls=calls, **rec)
+    text, c, sec = run_tool("bench_train", ["--iters", "5"])
+    recs = json_lines("bench_train", text, 5)
+    names = [r["metric"] for r in recs]
+    if names != [f"train_step_{t}" for t in ("person_detection", "face_detection",
+                                             "face_recognition", "pose_estimation")] + [
+            "train_steps_bs32_640_harmonic_summary"]:
+        fail(f"harness: bench_train printed {names}")
+    want = expected_launches("pallas_packed", 12 * 6)  # the warm-up step and 5 timed
+    if c != want:
+        fail(f"harness: bench_train launched {c}, expected {want}")
+    counts["bench_train"] = c
+    rows["bench_train"] = dict(seconds=sec, lines=recs)
+    data = os.path.join(root, "bench_io")
+    for mode, argv in (("cascade", ["--images", "256"]),
+                       ("train", ["--images", "128", "--epochs", "1"]),
+                       ("png", ["--images", "64", "--workers", "2", "--batch", "16"])):
+        text, c, sec = run_tool("bench_io", ["--mode", mode, "--data-dir", data, *argv])
+        rec, = json_lines("bench_io", text, 1)
+        calls = rec.get("cascade_calls", 0)
+        want = expected_launches("pallas_packed", 12 * calls, nms=2 * calls)
+        if c != want or not rec["value"] > 0:
+            fail(f"harness: bench_io {mode} printed {rec}, launched {c}, expected {want}")
+        rows[f"bench_io_{mode}"] = dict(seconds=sec, **rec)
+    text, c, sec = run_tool("profile_cascade", ["128", "--iters", "5"])
+    prof, = json_lines("profile_cascade", text)
+    if c != expected_launches("pallas_packed", 12 * 6, nms=2 * 6) or not profile_agrees(prof):
+        fail(f"harness: profile_cascade launched {c}, kernel ms {prof['kernel_ms']} against "
+             f"{prof['by_module']} by module")
+    rows["profile_cascade"] = dict(seconds=sec, **{k: prof[k] for k in (
+        "kernel_ms_per_call", "launches", "busy_share", "window_ms", "by_module",
+        "attention_ms", "top")})
+    text, c, sec = run_tool("profile_train", ["32", "640", "pose_estimation", "--iters", "2"])
+    prof, = json_lines("profile_train", text)
+    pose = prof["tasks"]["pose_estimation"]
+    if c != expected_launches("pallas_packed", 12 * 3) or not profile_agrees(pose):
+        fail(f"harness: profile_train launched {c}, kernel ms {pose['kernel_ms']} against "
+             f"{pose['by_module']} by module")
+    rows["profile_train"] = dict(seconds=sec, **{k: pose[k] for k in (
+        "kernel_ms_per_step", "launches", "busy_share", "window_ms", "by_module", "top")})
+    text, c, sec = run_tool("dump_trace_ops", ["--iters", "2", "--top", "10"])
+    dump, = json_lines("dump_trace_ops", text)
+    if dump["device"] != "cuda" or "train_pose_estimation" not in dump["trace"]:
+        fail(f"harness: dump_trace_ops read {dump['trace']} ({dump['device']})")
+    rows["dump_trace_ops"] = dict(seconds=sec, distinct_kernels=dump["distinct_kernels"])
+    emit("harness", **rows)
+    return counts
+
+
 POSE_CKPT_STEPS = 1300
 JAX_NUMERICS = "runs/r3_numerics/cascade_fp32_vs_bf16.json"
 # the counts the JAX tool's verdict requires non-empty
@@ -2800,6 +2912,15 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     yolo_counts = phase_train_yolo(device)
     phase_eval_verification(device)
+    root = tempfile.mkdtemp(prefix="prpe_harness_")
+    try:
+        harness = phase_harness(device, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bench = lambda kernel: dict(  # noqa: E731
+        launches_bench_cascade=harness["bench_cascade_pallas_packed"][kernel],
+        launches_bench_cascade_lnfused=harness["bench_cascade_pallas_lnfused"][kernel],
+        launches_bench_train=harness["bench_train"][kernel])
     # the convergence datasets are written while the numerics phase runs
     prepared = start_convergence_data()
     try:
@@ -2834,6 +2955,7 @@ def main() -> int:
                                          for k, v in parallel_counts.items()},
              launches_numerics=numerics_counts["check"]["nms"],
              launches_convergence_resumed=convergence_counts["nms"],
+             **bench("nms"),
              **row(nms_rows[0]),
              **suffixed(nms_rows[1], "_k1024")),
         dict(name="mhsa_packed", route="cuda", source=src + "mhsa.cu",
@@ -2851,6 +2973,7 @@ def main() -> int:
              launches_numerics_pose_training=numerics_counts["pose_training"]["mhsa"],
              launches_numerics=numerics_counts["check"]["mhsa"],
              launches_convergence_resumed=convergence_counts["mhsa"],
+             **bench("mhsa"),
              **attn_keys(mhsa_rows),
              **grad_keys("packed")),
     ]
@@ -2862,6 +2985,7 @@ def main() -> int:
                             replaces=f"{pallas}attention_kernel.py:{line}", attn_mode=mode,
                             launches=mode_counts[mode]["mhsa_bhtd"],
                             launches_numerics=numerics_counts["check"]["mhsa_bhtd"],
+                            **bench("mhsa_bhtd"),
                             **attn_keys(bhtd_rows),
                             **grad_keys("bhtd")))
     kernels.append(dict(name="ln_mhsa", route="cuda", source=src + "ln_mhsa.cu",
@@ -2869,6 +2993,7 @@ def main() -> int:
                         launches=counts["pallas_lnfused"]["ln_mhsa"],
                         launches_f32=counts_f32["pallas_lnfused"]["ln_mhsa"],
                         launches_numerics=numerics_counts["check"]["ln_mhsa"],
+                        **bench("ln_mhsa"),
                         composed_library_ms=ln_rows[0]["composed_library_ms"],
                         composed_library_ms_b128=ln_rows[1]["composed_library_ms"],
                         composed_library_ms_f32=ln_rows[2]["composed_library_ms"],

@@ -5,7 +5,9 @@ grey + alpha, RGB, RGBA and palette; every filter type; no interlace) and
 uncompressed 24- and 32-bit BMP with numpy and zlib, so a host without PIL
 reads the datasets ``tools/make_dataset.py`` writes; any other format (JPEG)
 goes through PIL where it is installed and raises a ``RuntimeError`` naming
-the file where it is not. ``save_png`` writes what ``decode_png`` reads.
+the file where it is not. ``save_png`` writes what ``decode_png`` reads;
+``jpeg_roundtrip`` gives an image the losses of a baseline JPEG without a
+JPEG codec.
 ``resize_image`` is torch's antialiased bilinear resize rounded back to
 uint8, within one grey level of PIL's ``BILINEAR``; the dataset readers
 resize with ``native.resize_bilinear_u8`` instead, since their forked
@@ -140,6 +142,73 @@ def encode_png(img: np.ndarray, level: int = 6) -> bytes:
 def save_png(path, img: np.ndarray, level: int = 6) -> None:
     with open(path, "wb") as f:
         f.write(encode_png(img, level))
+
+
+# libjpeg's base quantisation tables (ITU-T T.81 Annex K), row-major 8x8
+_JPEG_LUMA = np.array(
+    [16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57,
+     69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64,
+     81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99],
+    np.float64).reshape(8, 8)
+_JPEG_CHROMA = np.array(
+    [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99,
+     99, 99, 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32, np.float64).reshape(8, 8)
+
+
+def _jpeg_plane(plane: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """One plane through 8x8 DCT blocks quantised by ``quant`` and back."""
+    from scipy.fft import dctn, idctn
+
+    h, w = plane.shape
+    hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
+    x = np.pad(plane, ((0, hp - h), (0, wp - w)), mode="edge") - 128.0
+    blocks = x.reshape(hp // 8, 8, wp // 8, 8).transpose(0, 2, 1, 3)
+    coef = np.round(dctn(blocks, axes=(2, 3), norm="ortho") / quant) * quant
+    y = idctn(coef, axes=(2, 3), norm="ortho").transpose(0, 2, 1, 3).reshape(hp, wp)
+    return np.clip(np.round(y + 128.0), 0, 255)[:h, :w]
+
+
+def _upsample2(c: np.ndarray) -> np.ndarray:
+    """libjpeg's "fancy" 2x upsampling on both axes: each output sample is
+    3/4 of its own input sample and 1/4 of the next one outwards."""
+    for axis in (0, 1):
+        p = np.pad(c, [(1, 1) if a == axis else (0, 0) for a in range(2)], mode="edge")
+        mid = np.take(p, range(1, p.shape[axis] - 1), axis=axis)
+        lo = 0.75 * mid + 0.25 * np.take(p, range(0, p.shape[axis] - 2), axis=axis)
+        hi = 0.75 * mid + 0.25 * np.take(p, range(2, p.shape[axis]), axis=axis)
+        shape = list(mid.shape)
+        shape[axis] *= 2
+        c = np.stack([lo, hi], axis=axis + 1).reshape(shape)
+    return c
+
+
+def jpeg_roundtrip(img: np.ndarray, quality: int = 92) -> np.ndarray:
+    """uint8 RGB HWC -> the pixels a baseline JPEG of ``quality`` decodes
+    to: JFIF YCbCr, 2x2 chroma subsampling, 8x8 DCT quantised by the
+    libjpeg tables at that quality, libjpeg's fancy upsampling back. A numpy
+    model of what PIL's ``save(..., quality=q)`` then ``open`` give (within
+    about 1.2 grey levels on average of PIL's pixels for the synthetic pose
+    scenes, where the lossless image differs from them by about 11), for a
+    host without a JPEG codec."""
+    x = np.asarray(img, np.float64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = np.round(0.299 * r + 0.587 * g + 0.114 * b)
+    cb = np.round(-0.168736 * r - 0.331264 * g + 0.5 * b + 128.0)
+    cr = np.round(0.5 * r - 0.418688 * g - 0.081312 * b + 128.0)
+    scale = 5000.0 / quality if quality < 50 else 200.0 - 2.0 * quality
+    luma, chroma = (np.clip(np.floor((t * scale + 50) / 100), 1, 255)
+                    for t in (_JPEG_LUMA, _JPEG_CHROMA))
+    h, w = y.shape
+
+    def chroma_plane(c):
+        c = np.pad(c, ((0, h % 2), (0, w % 2)), mode="edge")
+        c = c.reshape(c.shape[0] // 2, 2, c.shape[1] // 2, 2).mean((1, 3))
+        return _upsample2(_jpeg_plane(c, chroma))[:h, :w] - 128.0
+
+    y = _jpeg_plane(y, luma)
+    cb, cr = chroma_plane(cb), chroma_plane(cr)
+    rgb = np.stack([y + 1.402 * cr, y - 0.344136 * cb - 0.714136 * cr, y + 1.772 * cb], -1)
+    return np.clip(np.round(rgb), 0, 255).astype(np.uint8)
 
 
 def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:

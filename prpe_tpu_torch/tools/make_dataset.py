@@ -3,7 +3,7 @@ through the port's own writer (no PIL needed).
 
     python -m prpe_tpu_torch.tools.make_dataset OUT [--train N] [--val N]
         [--det-size 320] [--pose-size 640] [--face-size 112]
-        [--identities 32] [--per-identity N]
+        [--identities 32] [--per-identity N] [--jpeg-quality Q]
 
 The layouts the training CLI reads (the repository's
 ``tools/make_synthetic_multitask_data.py`` and
@@ -23,6 +23,13 @@ and brightness jitter (faces), one person box with 17 distinct-coloured
 keypoint discs in a skeleton layout (pose, one person an image, since the
 combined model predicts one skeleton a frame). Detection images of one
 split seed are pixel-identical to the repository tool's.
+
+``--jpeg-quality Q`` passes every face crop and pose image through
+``data/image.py::jpeg_roundtrip`` before the PNG is written: the pixels
+the repository tool's JPEGs (quality 92) decode to, within about a grey
+level, for a host without PIL. Without it the PNGs are lossless, which is
+a departure from the JAX side's data: JPEG's quantisation takes about a
+quarter of the pose images' pixel noise away.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import Optional
 
 import numpy as np
 
-from prpe_tpu_torch.data.image import save_png
+from prpe_tpu_torch.data.image import jpeg_roundtrip, save_png
 
 # 17 maximally-distinct keypoint colours (hue wheel)
 KP_COLORS = np.stack([
@@ -51,8 +58,9 @@ SKELETON = np.array([
 ])
 
 
-def _u8(img: np.ndarray) -> np.ndarray:
-    return (img * 255).astype(np.uint8)
+def _u8(img: np.ndarray, jpeg_quality: Optional[int] = None) -> np.ndarray:
+    out = (img * 255).astype(np.uint8)
+    return out if jpeg_quality is None else jpeg_roundtrip(out, jpeg_quality)
 
 
 def make_detection_split(root: pathlib.Path, split: str, n: int, size: int, seed: int) -> None:
@@ -79,7 +87,7 @@ def make_detection_split(root: pathlib.Path, split: str, n: int, size: int, seed
 
 
 def make_faces(root: pathlib.Path, n_ids: int, per_id: int, size: int = 112,
-               seed: int = 0) -> None:
+               seed: int = 0, jpeg_quality: Optional[int] = None) -> None:
     """``n_ids`` identity folders of ``per_id`` crops each."""
     rng = np.random.default_rng(seed)
     sigs = rng.random((n_ids, 4, 4, 3))  # per-identity block signature
@@ -91,10 +99,11 @@ def make_faces(root: pathlib.Path, n_ids: int, per_id: int, size: int = 112,
             img = base + rng.normal(0, 0.08, base.shape)
             img = np.roll(img, rng.integers(-6, 7, 2), axis=(0, 1))
             img = np.clip(img * rng.uniform(0.8, 1.2), 0, 1)
-            save_png(d / f"{i:03d}.png", _u8(img))
+            save_png(d / f"{i:03d}.png", _u8(img, jpeg_quality))
 
 
-def make_pose_split(root: pathlib.Path, split: str, n: int, size: int, seed: int) -> None:
+def make_pose_split(root: pathlib.Path, split: str, n: int, size: int, seed: int,
+                    jpeg_quality: Optional[int] = None) -> None:
     """COCO-keypoints split of ``n`` images, one annotated person each."""
     img_dir, ann_dir = root / "images" / split, root / "annotations"
     img_dir.mkdir(parents=True, exist_ok=True)
@@ -126,7 +135,7 @@ def make_pose_split(root: pathlib.Path, split: str, n: int, size: int, seed: int
                      "num_keypoints": 17, "iscrowd": 0, "bbox": [x0, y0, bw, bh],
                      "area": float(bw * bh)})
         name = f"{i:06d}.png"
-        save_png(img_dir / name, _u8(img))
+        save_png(img_dir / name, _u8(img, jpeg_quality))
         images.append({"id": i, "file_name": name, "width": size, "height": size})
     coco = {"images": images, "annotations": anns,
             "categories": [{"id": 1, "name": "person",
@@ -136,18 +145,21 @@ def make_pose_split(root: pathlib.Path, split: str, n: int, size: int, seed: int
 
 def make_dataset(out, n_train: int = 256, n_val: int = 64, *, det_size: int = 320,
                  pose_size: int = 640, face_size: int = 112, identities: int = 32,
-                 per_identity: Optional[int] = None) -> pathlib.Path:
+                 per_identity: Optional[int] = None,
+                 jpeg_quality: Optional[int] = None) -> pathlib.Path:
     """All four layouts under ``out``, with the repository tool's seeds
-    (person 0/1, face 2/3, faces 0, pose 4/5). Returns ``out``."""
+    (person 0/1, face 2/3, faces 0, pose 4/5); ``jpeg_quality`` takes the
+    face crops and pose images through a JPEG round trip. Returns ``out``."""
     out = pathlib.Path(out)
     make_detection_split(out / "person", "train", n_train, det_size, seed=0)
     make_detection_split(out / "person", "val", n_val, det_size, seed=1)
     make_detection_split(out / "face", "train", n_train, det_size, seed=2)
     make_detection_split(out / "face", "val", n_val, det_size, seed=3)
     make_faces(out / "faces", identities,
-               per_identity if per_identity is not None else max(n_train // 8, 10), face_size)
-    make_pose_split(out / "pose", "train", n_train, pose_size, seed=4)
-    make_pose_split(out / "pose", "val", n_val, pose_size, seed=5)
+               per_identity if per_identity is not None else max(n_train // 8, 10), face_size,
+               jpeg_quality=jpeg_quality)
+    make_pose_split(out / "pose", "train", n_train, pose_size, seed=4, jpeg_quality=jpeg_quality)
+    make_pose_split(out / "pose", "val", n_val, pose_size, seed=5, jpeg_quality=jpeg_quality)
     return out
 
 
@@ -162,10 +174,13 @@ def main(argv=None) -> int:
     ap.add_argument("--identities", type=int, default=32)
     ap.add_argument("--per-identity", type=int, default=None,
                     help="face crops per identity (default max(train / 8, 10))")
+    ap.add_argument("--jpeg-quality", type=int, default=None,
+                    help="face crops and pose images through a JPEG round trip at this quality "
+                         "(the JAX tool writes 92)")
     a = ap.parse_args(argv)
     out = make_dataset(a.out, a.train, a.val, det_size=a.det_size, pose_size=a.pose_size,
                        face_size=a.face_size, identities=a.identities,
-                       per_identity=a.per_identity)
+                       per_identity=a.per_identity, jpeg_quality=a.jpeg_quality)
     print(f"wrote person/, face/, faces/, pose/ under {out}")
     return 0
 

@@ -260,3 +260,32 @@ def test_download_models_reports_what_is_missing_offline(tmp_path, monkeypatch, 
         (out / f).write_bytes(b"x")
     assert download_models.main(["--output-dir", str(out)]) == 0
     assert "all component models present" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("size", [64, 256])
+def test_make_dataset_jpeg_quality_matches_pil(tmp_path, size):
+    """``--jpeg-quality 92``: the pose images and face crops are what PIL's
+    quality-92 JPEG of the lossless images decodes to, within ~1.2 grey
+    levels on average (the lossless ones differ from it by ~10)."""
+    import io
+
+    from PIL import Image
+
+    from prpe_tpu_torch.data.image import decode_png
+    from prpe_tpu_torch.tools import make_dataset as md
+
+    md.make_pose_split(tmp_path / "png", "train", 2, size, seed=4)
+    md.make_pose_split(tmp_path / "jpg", "train", 2, size, seed=4, jpeg_quality=92)
+    md.make_faces(tmp_path / "fpng", 1, 2, 112)
+    md.make_faces(tmp_path / "fjpg", 1, 2, 112, jpeg_quality=92)
+    pairs = [(tmp_path / "png" / "images" / "train", tmp_path / "jpg" / "images" / "train"),
+             (tmp_path / "fpng" / "imgs" / "id0000", tmp_path / "fjpg" / "imgs" / "id0000")]
+    for lossless_dir, jpeg_dir in pairs:
+        for p in sorted(lossless_dir.glob("*.png")):
+            lossless = decode_png(p.read_bytes())
+            got = decode_png((jpeg_dir / p.name).read_bytes()).astype(np.float64)
+            buf = io.BytesIO()
+            Image.fromarray(lossless).save(buf, format="JPEG", quality=92)
+            want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"), np.float64)
+            assert np.abs(got - want).mean() <= 1.5, p
+            assert np.abs(lossless - want).mean() >= 4.0, p

@@ -12,7 +12,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "prpe_tpu")
 # absent on the card's host: imported only inside the functions that need them
-OPTIONAL = ("matplotlib", "PIL")
+# (transformers: bench_reference_torch's ViTPose-B, which names it when missing)
+OPTIONAL = ("matplotlib", "PIL", "transformers")
 
 _GUARDED_RUN = """
 import importlib, pkgutil, sys
@@ -112,11 +113,19 @@ with tempfile.TemporaryDirectory() as d:
                            "--face-data-dir", d + "/none", "--face-rec-data-dir", d + "/none",
                            "--pose-data-dir", d + "/none", "--component-dir", d + "/none",
                            "--checkpoint-dir", d + "/ck", "--log-dir", d + "/log"]) == 0
+from prpe_tpu_torch.tools import bench_cascade
+bench_cascade.main(["--dry-run"])
+try:
+    from prpe_tpu_torch.tools import bench_reference_torch
+    bench_reference_torch.main(["--device", "cpu"])
+    raise AssertionError("bench_reference_torch without transformers")
+except SystemExit as e:
+    assert "transformers" in str(e), e
 print("imported", len(mods), "modules")
 """
 # the modules of the combined model, the serving CLIs, the training path,
 # the eval hooks, the data layer, the YOLO trainer, the dataset CLIs, the
-# parallel slice and the numerics and convergence harness
+# parallel slice, the numerics and convergence harness and the measuring tools
 NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.nn.adapters", "prpe_tpu_torch.ops.margin",
                "prpe_tpu_torch.data.image", "prpe_tpu_torch.cli.infer",
@@ -143,7 +152,13 @@ NEW_MODULES = ("prpe_tpu_torch.models.combined", "prpe_tpu_torch.nn.resnet",
                "prpe_tpu_torch.parallel.collectives",
                "prpe_tpu_torch.tools.scenes", "prpe_tpu_torch.tools.make_numerics_pose_ckpt",
                "prpe_tpu_torch.tools.check_cascade_numerics",
-               "prpe_tpu_torch.tools.run_convergence", "prpe_tpu_torch.tools.run_face_validation")
+               "prpe_tpu_torch.tools.run_convergence", "prpe_tpu_torch.tools.run_face_validation",
+               "prpe_tpu_torch.tools.timing", "prpe_tpu_torch.tools.bench_cascade",
+               "prpe_tpu_torch.tools.bench_train", "prpe_tpu_torch.tools.reference_nets",
+               "prpe_tpu_torch.tools.bench_reference_torch", "prpe_tpu_torch.tools.bench_io",
+               "prpe_tpu_torch.tools.profile_cascade", "prpe_tpu_torch.tools.profile_train",
+               "prpe_tpu_torch.tools.dump_trace_ops", "prpe_tpu_torch.tools.bench_attention",
+               "prpe_tpu_torch.tools.bench_vit_ln", "prpe_tpu_torch.tools.pose_gap")
 
 
 def test_port_imports_and_runs_without_jax():
