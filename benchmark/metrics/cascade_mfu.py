@@ -1,0 +1,16 @@
+"""Per-layer metric ``cascade_mfu``: the whole call's share of the card's peak: the
+reference's FLOPs a call (``reference/flops.py::cascade_flops``) times the
+traced calls, over the traced window and the peak of the configuration's
+dtype, in %."""
+
+from benchmark.reference.flops import PEAKS, cascade_flops
+
+
+def read(summary, ctx):
+    if not summary["busy_s"]:
+        return None
+    u = ctx["units"]
+    flops = cascade_flops(ctx["cfg"], int(u["frames_per_call"]), int(u["face_slots"]),
+                          int(u["pose_slots"]))
+    rate = flops * summary["calls"] / summary["window_s"]
+    return 100.0 * rate / PEAKS["flops_per_s"][ctx["cfg"]["dtype"]]
