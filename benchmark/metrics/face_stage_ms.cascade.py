@@ -1,0 +1,11 @@
+"""Per-layer metric ``face_stage_ms.cascade``: device ms a call of the
+program's span ``cascade.face`` (top-F, the face crops, IR-50, the gallery
+match and the scatter back): the stream's time from reaching the span to
+finishing its work, busy plus waiting for launches
+(``prpe_tpu_torch/utils/profiling.py``)."""
+
+from benchmark.program_trace import mean_device_ms
+
+
+def read(summary, ctx):
+    return mean_device_ms(summary, "cascade.face")

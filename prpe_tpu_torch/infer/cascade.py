@@ -8,6 +8,10 @@ place of data-dependent branches), so a later change can capture the runner
 in a CUDA graph. The kernels of the path are the greedy NMS (twice per
 call) and, once per ViT block, the attention kernel that ``PRPE_ATTN_MODE``
 selects (``nn/vit.py``): the packed MHSA by default.
+
+While a ``torch.profiler`` records, each call keeps its stage spans (host
+and device time) and the counters of its gating funnel
+(``utils/profiling.py``); otherwise they cost one branch a call.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from prpe_tpu_torch.nn.yolo import YOLO, decode_predictions
 from prpe_tpu_torch.ops.heatmap import decode_heatmaps, flip_heatmaps
 from prpe_tpu_torch.ops.nms import Detections, non_max_suppression, topk_stable
 from prpe_tpu_torch.ops.roi import crop_and_resize_batch
+from prpe_tpu_torch.utils import profiling
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -121,74 +126,97 @@ def build_cascade_runner(model: CascadeModel, cascade_cfg: CascadeConfig = Casca
     mean = torch.tensor(IMAGENET_MEAN, device=dev)
     std = torch.tensor(IMAGENET_STD, device=dev)
 
-    def detect(yolo: YOLO, x: torch.Tensor, max_det: int, nms_k: int) -> Detections:
+    def detect(yolo: YOLO, x: torch.Tensor, max_det: int, nms_k: int, tr,
+               span: str) -> Detections:
+        with tr.span(span):
+            raw = yolo(x)
         return non_max_suppression(
-            decode_predictions(yolo(x), det.num_classes, det.reg_max),
+            decode_predictions(raw, det.num_classes, det.reg_max),
             conf_threshold=cascade_cfg.conf_threshold, iou_threshold=det.iou_threshold,
             max_det=max_det, pre_nms_top_k=nms_k)
 
     @torch.inference_mode()
     def run(images: torch.Tensor, gallery: torch.Tensor) -> CascadeResult:
-        images = images.to(dev)
-        gallery = gallery.to(dev, torch.float32)
         b = images.shape[0]
+        with profiling.call("cascade.call", b, dev) as tr:
+            return _run(images, gallery, b, tr)
+
+    def _run(images: torch.Tensor, gallery: torch.Tensor, b: int, tr) -> CascadeResult:
         # both budgets clamp to the candidate count
         g_slots = min(pose_capacity or max(1, b * 2), b * kp)
         f_slots = min(cascade_cfg.face_capacity or max(1, b * 2), b * kf)
         nms_k = min(cascade_cfg.pre_nms_top_k, det.pre_nms_top_k)
-        if images.dtype == torch.uint8:
-            images = _unit_norm(images, model.dtype)
+        with tr.span("cascade.upload"):
+            images = images.to(dev)
+            gallery = gallery.to(dev, torch.float32)
+            if images.dtype == torch.uint8:
+                images = _unit_norm(images, model.dtype)
+            x_det = images.to(model.dtype)
 
         # ---- stage 1: detection -------------------------------------------
-        x_det = images.to(model.dtype)
-        person_det = detect(model.person_yolo, x_det, kp, nms_k)
-        face_det = detect(model.face_yolo, x_det, kf, nms_k)
+        with tr.span("cascade.detect"):
+            person_det = detect(model.person_yolo, x_det, kp, nms_k, tr, "cascade.person_yolo")
+            face_det = detect(model.face_yolo, x_det, kf, nms_k, tr, "cascade.face_yolo")
 
         # ---- stage 2: top-F face crops -> IR-Net -> gallery match ---------
         neg_inf = torch.tensor(float("-inf"), device=dev)
-        face_score = torch.where(face_det.valid, face_det.scores, neg_inf).reshape(b * kf)
-        fs_scores, fs_idx = topk_stable(face_score, f_slots)
-        fs_valid = torch.isfinite(fs_scores)
-        fs_boxes = face_det.boxes.reshape(b * kf, 4)[fs_idx]
-        crops = crop_and_resize_batch(images, fs_boxes, fs_idx // kf, (112, 112))
-        crops = ((crops - 0.5) / 0.5).flip(-1)  # AdaFace BGR convention
-        emb, _ = model.irnet(crops)
-        sims = emb.float() @ gallery.T  # (F, N_ids)
-        slot_sim = torch.where(fs_valid, sims.max(-1).values, torch.tensor(-1.0, device=dev))
-        slot_id = sims.argmax(-1).to(torch.int32)
-        # scatter back to the (B, Kf) grid; top-k indices are unique
-        best_sim = torch.full((b * kf,), -1.0, device=dev).index_put_((fs_idx,), slot_sim)
-        best_id = torch.zeros(b * kf, dtype=torch.int32, device=dev).index_put_((fs_idx,), slot_id)
-        best_sim, best_id = best_sim.reshape(b, kf), best_id.reshape(b, kf)
-        matched = (best_sim > cascade_cfg.match_threshold) & face_det.valid
-        face_identity = torch.where(matched, best_id, torch.full_like(best_id, -1))
-        face_budget_saturated = face_det.valid.sum() > f_slots
+        with tr.span("cascade.face"):
+            face_score = torch.where(face_det.valid, face_det.scores, neg_inf).reshape(b * kf)
+            fs_scores, fs_idx = topk_stable(face_score, f_slots)
+            fs_valid = torch.isfinite(fs_scores)
+            fs_boxes = face_det.boxes.reshape(b * kf, 4)[fs_idx]
+            crops = crop_and_resize_batch(images, fs_boxes, fs_idx // kf, (112, 112))
+            crops = ((crops - 0.5) / 0.5).flip(-1)  # AdaFace BGR convention
+            with tr.span("cascade.irnet"):
+                emb, _ = model.irnet(crops)
+            sims = emb.float() @ gallery.T  # (F, N_ids)
+            slot_sim = torch.where(fs_valid, sims.max(-1).values,
+                                   torch.tensor(-1.0, device=dev))
+            slot_id = sims.argmax(-1).to(torch.int32)
+            # scatter back to the (B, Kf) grid; top-k indices are unique
+            best_sim = torch.full((b * kf,), -1.0, device=dev).index_put_((fs_idx,), slot_sim)
+            best_id = torch.zeros(b * kf, dtype=torch.int32,
+                                  device=dev).index_put_((fs_idx,), slot_id)
+            best_sim, best_id = best_sim.reshape(b, kf), best_id.reshape(b, kf)
+            matched = (best_sim > cascade_cfg.match_threshold) & face_det.valid
+            face_identity = torch.where(matched, best_id, torch.full_like(best_id, -1))
+            face_budget_saturated = face_det.valid.sum() > f_slots
 
-        # ---- stage 3: gate persons by contained matched faces -------------
-        if cascade_cfg.gate_pose:
-            gated = _face_person_gate(person_det, face_det, matched)
-        else:
-            gated = person_det.valid
+        with tr.span("cascade.pose"):
+            # ---- stage 3: gate persons by contained matched faces ---------
+            if cascade_cfg.gate_pose:
+                gated = _face_person_gate(person_det, face_det, matched)
+            else:
+                gated = person_det.valid
 
-        # ---- stage 4: top-G person crops -> ViTPose -> heatmap decode -----
-        gate_score = torch.where(gated, person_det.scores, neg_inf).reshape(-1)
-        top_scores, top_idx = topk_stable(gate_score, g_slots)
-        slot_valid = torch.isfinite(top_scores)
-        slot_img = top_idx // kp
-        slot_boxes = person_det.boxes.reshape(b * kp, 4)[top_idx]
-        pose_crops = crop_and_resize_batch(images, slot_boxes, slot_img, pose_cfg.input_size)
-        # the normalisation promotes to fp32; the model casts back to its dtype
-        pose_crops = (pose_crops - mean) / std
-        heatmaps = model.vitpose(pose_crops)
-        if cascade_cfg.pose_flip_test:
-            hm_flip = model.vitpose(torch.flip(pose_crops, dims=[2]))
-            heatmaps = (heatmaps + flip_heatmaps(hm_flip)) * 0.5
-        coords, kscores = decode_heatmaps(heatmaps.float(), boxes=slot_boxes)
+            # ---- stage 4: top-G person crops -> ViTPose -> heatmap decode -
+            gate_score = torch.where(gated, person_det.scores, neg_inf).reshape(-1)
+            top_scores, top_idx = topk_stable(gate_score, g_slots)
+            slot_valid = torch.isfinite(top_scores)
+            slot_img = top_idx // kp
+            slot_boxes = person_det.boxes.reshape(b * kp, 4)[top_idx]
+            pose_crops = crop_and_resize_batch(images, slot_boxes, slot_img, pose_cfg.input_size)
+            # the normalisation promotes to fp32; the model casts back to its dtype
+            pose_crops = (pose_crops - mean) / std
+            with tr.span("cascade.vitpose"):
+                heatmaps = model.vitpose(pose_crops)
+                if cascade_cfg.pose_flip_test:
+                    hm_flip = model.vitpose(torch.flip(pose_crops, dims=[2]))
+            if cascade_cfg.pose_flip_test:
+                heatmaps = (heatmaps + flip_heatmaps(hm_flip)) * 0.5
+            coords, kscores = decode_heatmaps(heatmaps.float(), boxes=slot_boxes)
 
-        bw = slot_boxes[:, 2] - slot_boxes[:, 0]
-        bh = slot_boxes[:, 3] - slot_boxes[:, 1]
-        img_x = coords[..., 0] * bw[:, None] + slot_boxes[:, 0:1]
-        img_y = coords[..., 1] * bh[:, None] + slot_boxes[:, 1:2]
+            bw = slot_boxes[:, 2] - slot_boxes[:, 0]
+            bh = slot_boxes[:, 3] - slot_boxes[:, 1]
+            img_x = coords[..., 0] * bw[:, None] + slot_boxes[:, 0:1]
+            img_y = coords[..., 1] * bh[:, None] + slot_boxes[:, 1:2]
+            pose_keypoints = torch.stack([img_x, img_y], -1)
+            pose_scores = kscores * slot_valid[:, None]
+        # the gating funnel (``utils/profiling.py``): masks kept, summed when read
+        tr.keep(persons=person_det.valid, faces=face_det.valid, face_slots=f_slots,
+                face_slots_used=fs_valid, matched_faces=matched, gated_persons=gated,
+                pose_slots=g_slots, pose_slots_used=slot_valid,
+                face_budget_saturated=face_budget_saturated)
         return CascadeResult(
             persons=person_det,
             faces=face_det,
@@ -198,8 +226,8 @@ def build_cascade_runner(model: CascadeModel, cascade_cfg: CascadeConfig = Casca
             face_budget_saturated=face_budget_saturated,
             pose_image_idx=torch.where(slot_valid, slot_img, torch.full_like(slot_img, -1)),
             pose_boxes=slot_boxes,
-            pose_keypoints=torch.stack([img_x, img_y], -1),
-            pose_scores=kscores * slot_valid[:, None],
+            pose_keypoints=pose_keypoints,
+            pose_scores=pose_scores,
             pose_valid=slot_valid,
         )
 
