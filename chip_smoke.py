@@ -252,6 +252,57 @@ def expected_launches(mode: str, layers: int, nms: int = 0):
     return want
 
 
+# no-grad eval BatchNorm forwards on non-empty tensors since the last
+# reset_counts(), by device type (watch_batchnorms)
+BN_EVALS: dict = {}
+
+
+def watch_batchnorms() -> None:
+    """Count every no-grad eval ``BatchNorm`` forward in ``BN_EVALS``:
+    ``BatchNorm.forward`` wrapped once, one Python call a BatchNorm. Each
+    such forward has to launch the fused kernel once (:func:`with_bn`), so
+    one that took ATen's ops shows as a missing launch."""
+    from prpe_tpu_torch.nn.common import BatchNorm
+
+    forward = BatchNorm.forward
+    if getattr(forward, "counted", False):
+        return
+
+    def counted(self, x, act=None):
+        if not (self.training or torch.is_grad_enabled()) and x.numel():
+            BN_EVALS[x.device.type] = BN_EVALS.get(x.device.type, 0) + 1
+        return forward(self, x, act)
+
+    counted.counted = True
+    BatchNorm.forward = counted
+
+
+def reset_counts() -> None:
+    """Every kernel's launch counter and ``BN_EVALS`` at zero."""
+    from prpe_tpu_torch.ops.kernels import reset_launches
+
+    reset_launches()
+    BN_EVALS.clear()
+
+
+def with_bn(want: dict, n=None) -> dict:
+    """``want`` with the fused eval BatchNorm's launches (``bn_act``) that
+    the BatchNorm forwards since :func:`reset_counts` call for: one a
+    no-grad eval forward on the card (``n``, where a spawned rank counted
+    them). ``bn_act`` is left out where ``want`` has no such key and none
+    ran, as the phases leave out zero counts."""
+    n = BN_EVALS.get("cuda", 0) if n is None else n
+    return {**want, "bn_act": n} if n or "bn_act" in want else dict(want)
+
+
+def batchnorms(*models) -> int:
+    """The ``BatchNorm`` modules of ``models``: the fused launches of one
+    no-grad eval forward of each."""
+    from prpe_tpu_torch.nn.common import BatchNorm
+
+    return sum(isinstance(m, BatchNorm) for model in models for m in model.modules())
+
+
 # ---------------------------------------------------------------- kernels ---
 
 def nms_inputs(b: int, k: int, gen: torch.Generator, device, valid_share: float = 0.7):
@@ -294,6 +345,87 @@ def phase_nms(gen, device, b: int, k: int, thr: float = 0.65):
     row = dict(name="nms_keep", B=b, K=k, max_abs_err=err, kept=int(keep.sum()),
                valid=int(valid.sum()), ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                library_ms=None, host_us=host_us(lambda: nms_keep(boxes, valid, thr)))
+    emit("kernel", **row)
+    return row
+
+
+# the fused eval BatchNorm's rows: the cell's largest sites (YOLO's first
+# ConvBN, IR-50's input BatchNorm -> PReLU, its last block) in the
+# channels-last layout cuDNN gives them, NCHW sites (IR-50's 14x14 planes
+# come so), fp32 once
+BN_ACT_ROWS = ((torch.bfloat16, (128, 16, 320, 320), "silu", "channels_last"),
+               (torch.bfloat16, (256, 64, 112, 112), "prelu", "channels_last"),
+               (torch.bfloat16, (256, 512, 7, 7), "none", "channels_last"),
+               (torch.bfloat16, (128, 16, 320, 320), "silu", "nchw"),
+               (torch.bfloat16, (256, 256, 14, 14), "prelu", "nchw"),
+               (torch.float32, (128, 16, 320, 320), "silu", "channels_last"))
+
+
+def parent_bn_eval(bn, x, act):
+    """Eval BatchNorm and its activation as the port ran them before the
+    fused op: the constants folded on every call, then separate ops."""
+    import torch.nn.functional as F
+
+    scale = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
+    bias = -bn.running_mean.float() * scale + bn.bias.float()
+    y = x * scale.to(x.dtype).view(1, -1, 1, 1) + bias.to(x.dtype).view(1, -1, 1, 1)
+    if act == "silu":
+        return F.silu(y)
+    return y if act is None else act(y)
+
+
+def phase_bn_act(gen, device, dtype, shape, act: str, layout: str):
+    """The fused eval BatchNorm kernel (``csrc/bn_act.cu``) at one of the
+    cell's shapes: bit-equal to its plain version, device ms against one
+    read and one write of the tensor, and host us a call of the op, of its
+    launch alone, of a warm ``BatchNorm`` forward (cached constants, one
+    op) and of the parent's eval expression it replaces (ten ops and the
+    activation's)."""
+    from prpe_tpu_torch.nn.common import BatchNorm, PReLU
+    from prpe_tpu_torch.ops.kernels import launches
+    from prpe_tpu_torch.ops.kernels.bn_act import _launch, bn_act, bn_act_plain
+
+    c = shape[1]
+    x = torch.randn(shape, generator=gen, device=device).to(dtype)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    scale, bias, alpha = (torch.rand(c, generator=gen, device=device).to(dtype) for _ in range(3))
+    alpha = alpha if act == "prelu" else None
+    before = launches["bn_act"]
+    y = bn_act(x, scale, bias, alpha, act, 1)
+    torch.cuda.synchronize()
+    if launches["bn_act"] != before + 1:
+        fail("bn_act did not count its launch")
+    want = bn_act_plain(x, scale, bias, alpha, act, 1)
+    if not torch.equal(y, want) or y.stride() != want.stride():
+        fail(f"bn_act differs from its plain version at {shape} {layout} {act}")
+    ms = time_ms(lambda: bn_act(x, scale, bias, alpha, act, 1))
+    plain_ms = time_ms(lambda: bn_act_plain(x, scale, bias, alpha, act, 1), runs=5, warmup=1)
+    nbytes = 2 * x.numel() * x.element_size()
+    bnd, by = bound_ms(nbytes, 0.0, PEAK_FLOPS[torch.float32])
+    # host us a call: a small tensor of the same channels, so the card keeps up
+    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    small = x[:1, :, :4, :4].contiguous(memory_format=fmt)
+    bn = BatchNorm(c, 1e-3).to(device).eval()
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.zero_()
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0)
+    module_act = {"none": None, "silu": "silu", "prelu": PReLU(c).to(device)}[act]
+    if act == "prelu":
+        with torch.no_grad():
+            module_act.alpha.fill_(0.25)
+    with torch.inference_mode():
+        host = {"host_us": host_us(lambda: bn_act(small, scale, bias, alpha, act, 1)),
+                # the launch alone, without the custom op's dispatch
+                "host_us_launch": host_us(lambda: _launch(small, scale, bias, alpha, act, 1)),
+                "host_us_module": host_us(lambda: bn(small, module_act)),
+                "host_us_parent": host_us(lambda: parent_bn_eval(bn, small, module_act))}
+    row = dict(name="bn_act", shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+               act=act, layout=layout, max_abs_err=float((y.float() - want.float()).abs().max()),
+               ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
+               tb_per_s=nbytes / ms / 1e9, **host)
     emit("kernel", **row)
     return row
 
@@ -609,7 +741,7 @@ def phase_attn_modes(device, batch: int = 128):
     ms per forward. Returns the launches per mode."""
     from prpe_tpu_torch.nn.common import build_on
     from prpe_tpu_torch.nn.vit import ViTPose
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     tiny_kw = dict(image_size=(64, 48), hidden=64, layers=2, heads=4)
     tiny_cpu = build_on(torch.device("cpu"), lambda: ViTPose(**tiny_kw), seed=5)
@@ -631,11 +763,11 @@ def phase_attn_modes(device, batch: int = 128):
             if not errs[mode] <= tol:
                 fail(f"attn_modes: {mode} tiny ViTPose differs by {errs[mode]} > {tol} "
                      "between card and CPU")
-            reset_launches()
+            reset_counts()
             hm = full(x)
             torch.cuda.synchronize()
             counts[mode] = dict(launches)
-            expected = expected_launches(mode, 12)
+            expected = with_bn(expected_launches(mode, 12))
             if counts[mode] != expected:
                 fail(f"attn_modes: {mode} launched {counts[mode]}, expected {expected}")
             if hm.shape != (batch, 17, 64, 48) or not bool(torch.isfinite(hm).all()):
@@ -654,7 +786,7 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
     launches of one call per mode."""
     from prpe_tpu_torch.core.config import CascadeConfig, DetectionConfig, PoseConfig
     from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     pose = pose or PoseConfig()
     t0 = time.perf_counter()
@@ -677,11 +809,12 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
                 run = build_cascade_runner(model, cfg, pose_capacity=batch, device=device)
                 if batch == batches[0][0]:
                     # the main path, once, with every counter at zero
-                    reset_launches()
+                    reset_counts()
                     res = run(images[batch], gallery)
                     torch.cuda.synchronize()
                     counts[mode] = dict(launches)
                     want = expected_launches(mode, pose.vit_layers, nms=2)
+                    want["bn_act"] = batchnorms(model)
                     if counts[mode] != want:
                         fail(f"main path under {mode} ({dt}) launched {counts[mode]}, "
                              f"expected {want}")
@@ -754,9 +887,10 @@ def flat(out):
 def phase_combined_reference(device) -> None:
     """The tiny fp32 combined model on the card (kernels) against the same
     weights and images on the CPU (plain versions), every task; K2 once in
-    ``pose`` (one ViT block), no kernel in any other task."""
+    ``pose`` (one ViT block), and the fused eval BatchNorm once a no-grad
+    eval BatchNorm forward (:func:`with_bn`), no other kernel of ours."""
     from prpe_tpu_torch.models.combined import CombinedModel
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     cfg = tiny_combined_config()
     cpu = CombinedModel(cfg, device="cpu", seed=2)
@@ -769,11 +903,11 @@ def phase_combined_reference(device) -> None:
     want_calls = combined_tasks(cpu, x, labels)
     with torch.inference_mode():
         for name, fn in combined_tasks(gpu, x.to(device), labels.to(device)).items():
-            reset_launches()
+            reset_counts()
             got = flat(fn())
             torch.cuda.synchronize()
             counts[name] = {k: v for k, v in launches.items() if v}
-            want = {"mhsa": cfg.pose.vit_layers} if name == "pose_estimation" else {}
+            want = with_bn({"mhsa": cfg.pose.vit_layers} if name == "pose_estimation" else {})
             if counts[name] != want:
                 fail(f"combined_reference: {name} launched {counts[name]}, expected {want}")
             err = 0.0
@@ -795,7 +929,7 @@ def phase_combined(device, batch: int = 16, size: int = 640, runs: int = 10) -> 
     fp32 ``pose``. Returns K2's launches per ``pose`` call per dtype."""
     from prpe_tpu_torch.core.config import CombinedModelConfig
     from prpe_tpu_torch.models.combined import CombinedModel
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     cfg = CombinedModelConfig()
     k2 = {}
@@ -812,11 +946,11 @@ def phase_combined(device, batch: int = 16, size: int = 640, runs: int = 10) -> 
         torch.cuda.reset_peak_memory_stats()
         with torch.inference_mode():
             for name, fn in combined_tasks(model, x, labels).items():
-                reset_launches()
+                reset_counts()
                 out = flat(fn())
                 torch.cuda.synchronize()
                 counts = {k: v for k, v in launches.items() if v}
-                want = {"mhsa": cfg.pose.vit_layers} if name == "pose_estimation" else {}
+                want = with_bn({"mhsa": cfg.pose.vit_layers} if name == "pose_estimation" else {})
                 if counts != want:
                     fail(f"combined {dt}: {name} launched {counts}, expected {want}")
                 if not all(bool(torch.isfinite(t).all()) for t in out):
@@ -862,17 +996,18 @@ def phase_infer_cli(device, frames: int = 4, faces: int = 2, calls: int = 5) -> 
     import numpy as np
 
     from prpe_tpu_torch.cli import infer
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     model = infer.build_model("full", device=device)
     rng = np.random.default_rng(11)
     images = rng.integers(0, 256, (frames, 640, 640, 3), dtype=np.uint8)
     enroll = rng.integers(0, 256, (faces, 112, 112, 3), dtype=np.uint8)
-    reset_launches()
+    reset_counts()
     results = infer.run(model, images, enroll, threshold=0.4)
     torch.cuda.synchronize()
     counts = dict(launches)
     want = expected_launches("pallas_packed", model.pose_cfg.vit_layers, nms=2)
+    want["bn_act"] = batchnorms(model, model.irnet)  # IR-Net embeds the enrolled faces too
     if counts != want:
         fail(f"infer_cli launched {counts}, expected {want}")
     check_infer_json(results, frames)
@@ -897,7 +1032,7 @@ def phase_export(device, batch: int = 2) -> dict:
     block, and its heatmaps equal the eager ones within 1e-5 of their
     largest magnitude."""
     from prpe_tpu_torch.cli import export
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     rows = {}
     for name in ("vitpose", "combined_pose"):
@@ -912,12 +1047,13 @@ def phase_export(device, batch: int = 2) -> dict:
             fail(f"export: {name} graph holds {nodes}, expected 12 prpe::mhsa_packed nodes")
         with torch.inference_mode():
             want = model(x)
-            reset_launches()
+            reset_counts()
             got = program.module()(x)
             torch.cuda.synchronize()
         counts = {k: v for k, v in launches.items() if v}
-        if counts != {"mhsa": 12}:
-            fail(f"export: the {name} program launched {counts}, expected {{'mhsa': 12}}")
+        want_counts = with_bn({"mhsa": 12})
+        if counts != want_counts:
+            fail(f"export: the {name} program launched {counts}, expected {want_counts}")
         err = float((got - want).abs().max())
         tol = 1e-5 * max(1.0, float(want.abs().max()))
         if not err <= tol:
@@ -1051,7 +1187,7 @@ def phase_train_reference(device) -> dict:
     detection eval step. Returns the launch counts."""
     from prpe_tpu_torch.core.config import TASKS
     from prpe_tpu_torch.models.combined import CombinedModel
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.train.steps import make_eval_step, trainable_mask
 
     cfg = tiny_combined_config()
@@ -1066,12 +1202,12 @@ def phase_train_reference(device) -> dict:
         for m in models.values():
             m.ada_face.dropout.rate = 0.0
         start = {k: t.clone() for k, t in models["cpu"].state_dict().items()}
-        reset_launches()
+        reset_counts()
         got = one_train_step(models["card"], task, cfg, TRAIN_OPTIM, batches[task])
         _sync(device)
         counts[task] = {"train": {k: v for k, v in launches.items() if v}}
+        want_counts = with_bn({"mhsa": cfg.pose.vit_layers} if task == "pose_estimation" else {})
         want = one_train_step(models["cpu"], task, cfg, TRAIN_OPTIM, batches[task])
-        want_counts = {"mhsa": cfg.pose.vit_layers} if task == "pose_estimation" else {}
         if counts[task]["train"] != want_counts:
             fail(f"train_reference: {task} step launched {counts[task]['train']}, "
                  f"expected {want_counts}")
@@ -1103,12 +1239,12 @@ def phase_train_reference(device) -> dict:
                 if not e <= 1e-3:
                     fail(f"train_reference: {task} statistic {k} off by {e}")
                 stat_err = max(stat_err, e)
-        reset_launches()
+        reset_counts()
         make_eval_step(models["card"], task, cfg)(batches[task])
         _sync(device)
         counts[task]["eval"] = {k: v for k, v in launches.items() if v}
-        want_eval = ({"nms": 1} if "detection" in task else
-                     {"mhsa": 2 * cfg.pose.vit_layers} if task == "pose_estimation" else {})
+        want_eval = with_bn({"nms": 1} if "detection" in task else
+                            {"mhsa": 2 * cfg.pose.vit_layers} if task == "pose_estimation" else {})
         if counts[task]["eval"] != want_eval:
             fail(f"train_reference: {task} eval step launched {counts[task]['eval']}, "
                  f"expected {want_eval}")
@@ -1137,7 +1273,7 @@ def phase_train(device, cfg=None, dtype=torch.bfloat16, batch: int = 32, size: i
 
     from prpe_tpu_torch.core.config import TASKS, CombinedModelConfig, OptimConfig
     from prpe_tpu_torch.models.combined import CombinedModel
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.train.optim import build_optimizer
     from prpe_tpu_torch.train.state import create_train_state
     from prpe_tpu_torch.train.steps import (
@@ -1179,7 +1315,7 @@ def phase_train(device, cfg=None, dtype=torch.bfloat16, batch: int = 32, size: i
                 data = None
                 torch.cuda.empty_cache()
                 b //= 2
-        reset_launches()
+        reset_counts()
         holder = {"state": state}
 
         def one():
@@ -1192,9 +1328,9 @@ def phase_train(device, cfg=None, dtype=torch.bfloat16, batch: int = 32, size: i
         state = holder["state"]
         counts = {k: v for k, v in launches.items() if v}
         per_step[task] = {k: v / steps for k, v in counts.items()}
-        want = {"mhsa": float(cfg.pose.vit_layers)} if task == "pose_estimation" else {}
-        if per_step[task] != want:
-            fail(f"train: {task} launched {counts} in {steps} steps, expected {want} a step")
+        want = with_bn({"mhsa": cfg.pose.vit_layers * steps} if task == "pose_estimation" else {})
+        if counts != want:
+            fail(f"train: {task} launched {counts} in {steps} steps, expected {want}")
         host = [{k: float(v) for k, v in m.items()} for m in losses]
         if not all(v == v and abs(v) != float("inf") for m in host for v in m.values()):
             fail(f"train: {task} has non-finite metrics {host[-1]}")
@@ -1202,12 +1338,12 @@ def phase_train(device, cfg=None, dtype=torch.bfloat16, batch: int = 32, size: i
             if k in trunk and not torch.equal(p, trunk[k]):
                 fail(f"train: the frozen trunk's {k} moved in {task}")
         peak = torch.cuda.max_memory_allocated(device) / 2 ** 30 if device.type == "cuda" else 0.0
-        reset_launches()
+        reset_counts()
         metrics, _ = make_eval_step(model, task, cfg)(data)
         _sync(device)
         per_eval[task] = {k: v for k, v in launches.items() if v}
-        want_eval = ({"nms": 1} if "detection" in task else
-                     {"mhsa": 2 * cfg.pose.vit_layers} if task == "pose_estimation" else {})
+        want_eval = with_bn({"nms": 1} if "detection" in task else
+                            {"mhsa": 2 * cfg.pose.vit_layers} if task == "pose_estimation" else {})
         if per_eval[task] != want_eval:
             fail(f"train: {task} eval step launched {per_eval[task]}, expected {want_eval}")
         rows[task] = dict(batch=b, batch_note=None if b == batch else f"batch {batch} did not fit",
@@ -1242,7 +1378,7 @@ def phase_train_cli(device, full_batch: int = 4,
     import tempfile
 
     from prpe_tpu_torch.cli import train as cli
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     tmp = tempfile.mkdtemp(prefix="prpe_train_cli_")
     try:
@@ -1266,7 +1402,7 @@ def phase_train_cli(device, full_batch: int = 4,
         if [e for e, _ in epochs] != [1, 1, 1] or epochs[-1][1] != "pose_estimation":
             fail(f"train_cli: the resumed run wrote checkpoints {epochs}")
 
-        reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         if cli.main(args("full", *full, "--batch-size", str(full_batch), "--epochs", "1",
                          "--save-every", "2")) != 0:
@@ -1276,7 +1412,7 @@ def phase_train_cli(device, full_batch: int = 4,
         counts = {k: v for k, v in launches.items() if v}
         # 8 synthetic train batches a task; 2 validation batches a detection
         # task (K1 once each); pose has no validation loader
-        want = {"mhsa": 8 * layers, "nms": 2 * 2}
+        want = with_bn({"mhsa": 8 * layers, "nms": 2 * 2})
         if counts != want:
             fail(f"train_cli: the full run launched {counts}, expected {want}")
         written = sorted(os.listdir(os.path.join(tmp, "full", "ck")))
@@ -1399,7 +1535,7 @@ def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640
     import tempfile
 
     from prpe_tpu_torch.cli import train as cli
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     tmp = tempfile.mkdtemp(prefix="prpe_train_data_")
     runs, first_counts, first_ms = {}, None, None
@@ -1437,7 +1573,7 @@ def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640
                              *(() if w == workers[0] else ("--max-train-samples", str(batch))))
             cli.build_task_loaders = capture
             try:
-                reset_launches()
+                reset_counts()
                 t0 = time.perf_counter()
                 if cli.main(argv) != 0:
                     fail(f"train_data: the run at {w} workers did not return 0")
@@ -1451,8 +1587,9 @@ def phase_train_data(device, n_train: int = 64, n_val: int = 32, size: int = 640
                 fail(f"train_data: not every task read its dataset ({sorted(captured)})")
             val_batches = {t: captured[t]["val"].steps_per_epoch for t in TASK_METRIC}
             pose_steps = captured["pose_estimation"]["train"].steps_per_epoch
-            want = {"nms": val_batches["person_detection"] + val_batches["face_detection"],
-                    "mhsa": layers * pose_steps + 2 * layers * val_batches["pose_estimation"]}
+            want = with_bn({
+                "nms": val_batches["person_detection"] + val_batches["face_detection"],
+                "mhsa": layers * pose_steps + 2 * layers * val_batches["pose_estimation"]})
             if counts != want or min(val_batches.values()) < 1:
                 fail(f"train_data: {w} workers launched {counts}, expected {want} "
                      f"(val batches {val_batches}, pose steps {pose_steps})")
@@ -1544,7 +1681,7 @@ def collect_ranks(world: int, q, procs, timeout_s: float = 900.0) -> list:
 def count_on_cpu() -> None:
     """For a rehearsal on the CPU: each custom op's CPU kernel (its plain
     version) counts a launch, as its CUDA kernel does on the card."""
-    from prpe_tpu_torch.ops.kernels import _build, attention, nms
+    from prpe_tpu_torch.ops.kernels import _build, attention, bn_act, nms
 
     def counting(op, plain, key):
         def fn(*args):
@@ -1555,6 +1692,7 @@ def count_on_cpu() -> None:
     counting("prpe::mhsa_packed", attention.mhsa_packed_plain, "mhsa")
     counting("prpe::mhsa_bhtd", attention.mhsa_bhtd_plain, "mhsa_bhtd")
     counting("prpe::nms_keep", nms.nms_keep_plain, "nms")
+    counting("prpe::bn_act", bn_act.bn_act_plain, "bn_act")
 
 
 def _rank_device(device_str: str) -> torch.device:
@@ -1568,6 +1706,7 @@ def _rank_device(device_str: str) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
     else:
         count_on_cpu()
+    watch_batchnorms()
     return device
 
 
@@ -1624,7 +1763,7 @@ def _reference_rank(rank: int, world: int, init_dir: str, schedule, device_str: 
     device = _rank_device(device_str)
     from prpe_tpu_torch.core.config import MeshConfig, OptimConfig
     from prpe_tpu_torch.models.combined import CombinedModel
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.parallel import distributed, mesh as mesh_lib
     from prpe_tpu_torch.train.optim import build_optimizer
     from prpe_tpu_torch.train.state import create_train_state
@@ -1656,19 +1795,21 @@ def _reference_rank(rank: int, world: int, init_dir: str, schedule, device_str: 
                                  lambda u: mesh_lib.global_norm(u, mesh))
             state = create_train_state(model, {task: tx}, {task: trainable_params(model, task)})
             step = make_train_step(model, task, tx, cfg)
-            reset_launches()
+            reset_counts()
             _, metrics = step(state, mesh_lib.shard_batch(batch, mesh),
                               torch.Generator(device=device))
             _sync(device)
             counts = {k: v for k, v in launches.items() if v}
+            bn_evals = BN_EVALS.get(device.type, 0)
             got = {k: t.detach() for k, t in
                    mesh_lib.gather_params(model.state_dict(), mesh).items()}
             want_metrics, want = refs[task]
             errs = step_errors(start, got, want, trainable_mask(model, task),
                                {k: float(v) for k, v in metrics.items()}, want_metrics)
-            rows[task] = dict(launches=counts, digest=state_digest(got), errors=dict(
-                zip(("metric", "grad_norm", "param_share", "stat"), errs)),
-                loss=float(metrics["loss"]))
+            rows[task] = dict(launches=counts, bn_evals=bn_evals, digest=state_digest(got),
+                              errors=dict(zip(("metric", "grad_norm", "param_share", "stat"),
+                                              errs)),
+                              loss=float(metrics["loss"]))
         out[f"dp{shape[0]}_mp{shape[1]}"] = dict(coords=(mesh.data_rank, mesh.model_rank),
                                                  group_rank=procs.index(rank), tasks=rows)
         distributed.shutdown()
@@ -1723,9 +1864,10 @@ def phase_parallel_reference(device, schedule=((((2, 1), (0, 1)), ((1, 2), (2, 3
         for task in TASKS:
             per_rank = [r["tasks"][task] for r in ranks]
             want_launches = {"mhsa": cfg.pose.vit_layers} if task == "pose_estimation" else {}
-            if any(r["launches"] != want_launches for r in per_rank):
+            wants = [with_bn(want_launches, r["bn_evals"]) for r in per_rank]
+            if [r["launches"] for r in per_rank] != wants:
                 fail(f"parallel_reference: {name} {task} launched "
-                     f"{[r['launches'] for r in per_rank]}, expected {want_launches} a rank")
+                     f"{[r['launches'] for r in per_rank]}, expected {wants}")
             if len({r["digest"] for r in per_rank}) != 1:
                 fail(f"parallel_reference: {name} {task}: the ranks' parameters, statistics "
                      "or margin buffers differ")
@@ -1777,7 +1919,7 @@ def _cli_runs(rank: int, runs, device, profile_task: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from prpe_tpu_torch.cli import train as cli
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.parallel import distributed, mesh as mesh_lib
     from prpe_tpu_torch.train import checkpoint, round_robin
 
@@ -1853,7 +1995,7 @@ def _cli_runs(rank: int, runs, device, profile_task: str) -> dict:
             out.update(profile=None, step_ms={}, t0=t0, save_s=0.0)
             if cuda:
                 torch.cuda.reset_peak_memory_stats(device)
-            reset_launches()
+            reset_counts()
             if gloo:
                 distributed.initialize(gloo, processes, rank, backend="gloo", device=device)
             try:
@@ -1865,6 +2007,7 @@ def _cli_runs(rank: int, runs, device, profile_task: str) -> dict:
             out.pop("t0")
             results[name] = dict(out, code=code, run_s=time.perf_counter() - t0,
                                  launches={k: v for k, v in launches.items() if v},
+                                 bn_evals=BN_EVALS.get(device.type, 0),
                                  peak_gib=(torch.cuda.max_memory_allocated(device) / 2 ** 30
                                            if cuda else 0.0))
     finally:
@@ -1943,10 +2086,11 @@ def phase_parallel(device, root: str, size: int = 640, batch: int = 32, layers: 
             run_s = ranks[0]["run_s"]  # the other ranks may have waited for it to start
             if any(r["code"] != 0 for r in ranks):
                 fail(f"parallel: {name} returned {[r['code'] for r in ranks]}")
-            want = {"nms": 2, "mhsa": 2 * layers + 2 * layers}
-            if any(r["launches"] != want for r in ranks):
+            want = [with_bn({"nms": 2, "mhsa": 2 * layers + 2 * layers}, r["bn_evals"])
+                    for r in ranks]
+            if [r["launches"] for r in ranks] != want:
                 fail(f"parallel: {name} launched {[r['launches'] for r in ranks]}, "
-                     f"expected {want} on each rank")
+                     f"expected {want}")
             if len({r["digest"] for r in ranks}) != 1:
                 fail(f"parallel: {name}: the ranks' replicated parameters or buffers differ")
             rows = {}
@@ -2011,7 +2155,7 @@ def phase_device_resident(device, root: str, size: int = 640, batch: int = 32,
 
     from prpe_tpu_torch.cli import train as cli
     from prpe_tpu_torch.core.config import TASKS
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     build = cli.build_task_loaders
     out, first = {}, None
@@ -2028,7 +2172,7 @@ def phase_device_resident(device, root: str, size: int = 640, batch: int = 32,
             run_dir = os.path.join(tmp, name)
             cli.build_task_loaders = capture
             try:
-                reset_launches()
+                reset_counts()
                 t0 = time.perf_counter()
                 if cli.main(data_argv(root, run_dir, device, size, batch, *full, "--epochs",
                                       str(epochs), "--save-every", str(epochs + 1),
@@ -2041,8 +2185,8 @@ def phase_device_resident(device, root: str, size: int = 640, batch: int = 32,
             counts = {k: v for k, v in launches.items() if v}
             val = {t: captured[t]["val"].steps_per_epoch for t in TASKS}
             pose_steps = captured["pose_estimation"]["train"].steps_per_epoch
-            want = {"nms": epochs * (val["person_detection"] + val["face_detection"]),
-                    "mhsa": epochs * layers * (pose_steps + 2 * val["pose_estimation"])}
+            want = with_bn({"nms": epochs * (val["person_detection"] + val["face_detection"]),
+                            "mhsa": epochs * layers * (pose_steps + 2 * val["pose_estimation"])})
             if counts != want:
                 fail(f"device_resident: {name} launched {counts}, expected {want}")
             rows, staged = {}, 0
@@ -2137,7 +2281,7 @@ def phase_yolo_reference(device, size: int = 64, batch: int = 4) -> dict:
 
     from prpe_tpu_torch.cli import train_yolo
     from prpe_tpu_torch.core.config import DetectionConfig, OptimConfig
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.train.optim import build_optimizer
 
     cpu = torch.device("cpu")
@@ -2149,26 +2293,28 @@ def phase_yolo_reference(device, size: int = 64, batch: int = 4) -> dict:
     start = {k: t.clone() for k, t in models["cpu"].state_dict().items()}
     names = [n for n, _ in models["cpu"].named_parameters()]
     steps, eval_batch = yolo_batches(2, batch, size, seed=5), yolo_batches(1, batch, size, 6)[0]
-    out, counts = {}, {}
+    out, counts, wants = {}, {}, {}
     for where, model in models.items():
         tx = build_optimizer(OptimConfig(**YOLO_OPTIM))
         state = train_yolo.create_state(model, tx)
-        reset_launches()
+        reset_counts()
         metrics = [{k: float(v) for k, v in train_yolo.train_step(model, tx, state, b, det)
                     .items()} for b in steps]
         _sync(device)
         counts[where] = {"train": {k: v for k, v in launches.items() if v}}
-        reset_launches()
+        wants[where] = {"train": with_bn({})}
+        reset_counts()
         dets = train_yolo.eval_step(model, state.ema_params, eval_batch, det)
         _sync(device)
         counts[where]["eval"] = {k: v for k, v in launches.items() if v}
+        wants[where]["eval"] = with_bn({"nms": 1})
         out[where] = dict(metrics=metrics, count=state.updates_count,
                           sd={k: t.cpu() for k, t in model.state_dict().items()},
                           ema={k: t.cpu() for k, t in state.ema_params.items()},
                           dets=[t.cpu().numpy() for t in dets])
     got, want = out["card"], out["cpu"]
-    if counts["card"] != {"train": {}, "eval": {"nms": 1}}:
-        fail(f"yolo_reference: the card launched {counts['card']}, expected K1 once in eval")
+    if counts["card"] != wants["card"]:
+        fail(f"yolo_reference: the card launched {counts['card']}, expected {wants['card']}")
     if not got["count"] == want["count"] == 2:
         fail(f"yolo_reference: update counts {got['count']}, {want['count']}")
     metric_err = max(abs(g[k] - w[k]) / max(1.0, abs(w[k]))
@@ -2263,7 +2409,7 @@ def phase_train_yolo(device, n_train: int = 64, n_val: int = 32, size: int = 640
 
     from prpe_tpu_torch.cli import train_yolo
     from prpe_tpu_torch.eval import map as map_eval
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.tools.make_dataset import make_detection_split
 
     tmp = tempfile.mkdtemp(prefix="prpe_train_yolo_")
@@ -2319,7 +2465,7 @@ def phase_train_yolo(device, n_train: int = 64, n_val: int = 32, size: int = 640
         stdout = io.StringIO()
         cuda = device.type == "cuda"
         try:
-            reset_launches()
+            reset_counts()
             if cuda:
                 torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
@@ -2335,9 +2481,10 @@ def phase_train_yolo(device, n_train: int = 64, n_val: int = 32, size: int = 640
         if rc != 0:
             fail("train_yolo: the training run did not return 0")
         val_batches = captured["val"].steps_per_epoch
-        if train_counts != {"nms": epochs * val_batches} or val_batches < 1:
-            fail(f"train_yolo: the training run launched {train_counts}, expected K1 "
-                 f"{epochs} x {val_batches}")
+        want = with_bn({"nms": epochs * val_batches})
+        if train_counts != want or val_batches < 1:
+            fail(f"train_yolo: the training run launched {train_counts}, expected {want} "
+                 f"(K1 {epochs} x {val_batches})")
         with open(os.path.join(out, "step.csv")) as f:
             rows = list(csv.DictReader(f))
         if len(rows) != epochs or not all(float(v) == float(v) and abs(float(v)) != float("inf")
@@ -2351,7 +2498,7 @@ def phase_train_yolo(device, n_train: int = 64, n_val: int = 32, size: int = 640
 
         # --test on best: the CLI where matplotlib imports, else its evaluate
         plots = importlib.util.find_spec("matplotlib") is not None
-        reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         test_out = io.StringIO()
         if plots:
@@ -2382,8 +2529,9 @@ def phase_train_yolo(device, n_train: int = 64, n_val: int = 32, size: int = 640
         _sync(device)
         test_s = time.perf_counter() - t0
         test_counts = {k: v for k, v in launches.items() if v}
-        if test_counts != {"nms": val_batches}:
-            fail(f"train_yolo: the test launched {test_counts}, expected K1 {val_batches}")
+        want = with_bn({"nms": val_batches})
+        if test_counts != want:
+            fail(f"train_yolo: the test launched {test_counts}, expected {want}")
         if not all(v == v for v in test_metrics.values()):
             fail(f"train_yolo: test metrics {test_metrics}")
     finally:
@@ -2426,7 +2574,7 @@ def phase_eval_verification(device, pairs: int = 64, arch: str = "ir_50",
 
     from prpe_tpu_torch.cli import eval_verification
     from prpe_tpu_torch.data.image import encode_png
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     rng = np.random.default_rng(0)
     imgs, issame = [], []
@@ -2441,7 +2589,7 @@ def phase_eval_verification(device, pairs: int = 64, arch: str = "ir_50",
         path = os.path.join(tmp, "pairs.npz")
         np.savez(path, jpegs=np.array(imgs, dtype=object), issame=np.asarray(issame))
         rates, metrics = [], None
-        reset_launches()
+        reset_counts()
         for _ in range(runs):
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -2471,11 +2619,11 @@ def run_tool(module: str, argv) -> tuple:
     import importlib
     import io
 
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
 
     tool = importlib.import_module(f"prpe_tpu_torch.tools.{module}")
     out = io.StringIO()
-    reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         rc = tool.main(list(argv))
@@ -2549,7 +2697,7 @@ def phase_harness(device, root: str) -> dict:
                 rec["vs_baseline"] is None) != (not baseline_args):
             fail(f"harness: bench_cascade printed {rec}")
         calls = 21  # a warm-up and 20 timed, well inside PRPE_BENCH_DEADLINE_S
-        want = expected_launches(mode, 12 * calls, nms=2 * calls)
+        want = with_bn(expected_launches(mode, 12 * calls, nms=2 * calls))
         if c != want:
             fail(f"harness: bench_cascade under {mode} launched {c}, expected {want}")
         counts[f"bench_cascade_{mode}"] = c
@@ -2561,7 +2709,7 @@ def phase_harness(device, root: str) -> dict:
                                              "face_recognition", "pose_estimation")] + [
             "train_steps_bs32_640_harmonic_summary"]:
         fail(f"harness: bench_train printed {names}")
-    want = expected_launches("pallas_packed", 12 * 6)  # the warm-up step and 5 timed
+    want = with_bn(expected_launches("pallas_packed", 12 * 6))  # a warm-up step, 5 timed
     if c != want:
         fail(f"harness: bench_train launched {c}, expected {want}")
     counts["bench_train"] = c
@@ -2573,13 +2721,14 @@ def phase_harness(device, root: str) -> dict:
         text, c, sec = run_tool("bench_io", ["--mode", mode, "--data-dir", data, *argv])
         rec, = json_lines("bench_io", text, 1)
         calls = rec.get("cascade_calls", 0)
-        want = expected_launches("pallas_packed", 12 * calls, nms=2 * calls)
+        want = with_bn(expected_launches("pallas_packed", 12 * calls, nms=2 * calls))
         if c != want or not rec["value"] > 0:
             fail(f"harness: bench_io {mode} printed {rec}, launched {c}, expected {want}")
         rows[f"bench_io_{mode}"] = dict(seconds=sec, **rec)
     text, c, sec = run_tool("profile_cascade", ["128", "--iters", "5"])
     prof, = json_lines("profile_cascade", text)
-    if c != expected_launches("pallas_packed", 12 * 6, nms=2 * 6) or not profile_agrees(prof):
+    want = with_bn(expected_launches("pallas_packed", 12 * 6, nms=2 * 6))
+    if c != want or not profile_agrees(prof):
         fail(f"harness: profile_cascade launched {c}, kernel ms {prof['kernel_ms']} against "
              f"{prof['by_module']} by module")
     rows["profile_cascade"] = dict(seconds=sec, **{k: prof[k] for k in (
@@ -2588,7 +2737,8 @@ def phase_harness(device, root: str) -> dict:
     text, c, sec = run_tool("profile_train", ["32", "640", "pose_estimation", "--iters", "2"])
     prof, = json_lines("profile_train", text)
     pose = prof["tasks"]["pose_estimation"]
-    if c != expected_launches("pallas_packed", 12 * 3) or not profile_agrees(pose):
+    want = with_bn(expected_launches("pallas_packed", 12 * 3))
+    if c != want or not profile_agrees(pose):
         fail(f"harness: profile_train launched {c}, kernel ms {pose['kernel_ms']} against "
              f"{pose['by_module']} by module")
     rows["profile_train"] = dict(seconds=sec, **{k: pose[k] for k in (
@@ -2629,7 +2779,7 @@ def phase_numerics(device, steps: int = POSE_CKPT_STEPS, scenes: int = 100,
     import tempfile
 
     from prpe_tpu_torch.core.config import PoseConfig
-    from prpe_tpu_torch.ops.kernels import launches, reset_launches
+    from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.tools import check_cascade_numerics as cn
     from prpe_tpu_torch.tools import make_numerics_pose_ckpt as mp
 
@@ -2638,7 +2788,7 @@ def phase_numerics(device, steps: int = POSE_CKPT_STEPS, scenes: int = 100,
     log = io.StringIO()
     try:
         pose_path = os.path.join(tmp, "pose_ckpt.pt")
-        reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             pck = mp.train_pose_ckpt(steps, 16, 1e-3, pose_path, device=device,
@@ -2649,7 +2799,7 @@ def phase_numerics(device, steps: int = POSE_CKPT_STEPS, scenes: int = 100,
         if pck < mp.MIN_PCK:
             fail(f"numerics: the pose checkpoint reached pck {pck:.3f} in {steps} steps, "
                  f"under {mp.MIN_PCK}")
-        reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
             report = cn.check_bf16(scenes, 4, cn.DETECTOR_NPZ, cn.DETECTOR_NPZ, pose_path,
@@ -2826,7 +2976,8 @@ def suffixed(row, suffix: str) -> dict:
 
 def kernel_rows(gen, device):
     """The serving-shape kernel rows: K1 at K = 256 and 1024; K2 and K3 in
-    bf16 and fp32 at B = 32 and 128; K4 in both dtypes at B = 32 and 128."""
+    bf16 and fp32 at B = 32 and 128; K4 in both dtypes at B = 32 and 128;
+    the fused eval BatchNorm at ``BN_ACT_ROWS``."""
     bf, f32 = torch.bfloat16, torch.float32
     nms_rows = [phase_nms(gen, device, 32, k) for k in (256, 1024)]
     # the pose stage runs at pose_capacity = batch
@@ -2834,7 +2985,8 @@ def kernel_rows(gen, device):
     mhsa_rows = [phase_mhsa(gen, device, dt, "packed", b) for dt, b in shapes]
     bhtd_rows = [phase_mhsa(gen, device, dt, "bhtd", b) for dt, b in shapes]
     ln_rows = [phase_ln_mhsa(gen, device, dt, b) for dt in (bf, f32) for b in (32, 128)]
-    return nms_rows, mhsa_rows, bhtd_rows, ln_rows
+    bn_rows = [phase_bn_act(gen, device, *spec) for spec in BN_ACT_ROWS]
+    return nms_rows, mhsa_rows, bhtd_rows, ln_rows, bn_rows
 
 
 def main() -> int:
@@ -2869,7 +3021,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, root=os.path.abspath(args.root or "."))
 
     gen = torch.Generator(device=device).manual_seed(0)
-    nms_rows, mhsa_rows, bhtd_rows, ln_rows = kernel_rows(gen, device)
+    nms_rows, mhsa_rows, bhtd_rows, ln_rows, bn_rows = kernel_rows(gen, device)
     fp32_cascade = lambda: phase_cascade(  # noqa: E731
         device, batches=((32, 10),), dtype=torch.float32)
     if args.kernels_only:
@@ -2878,6 +3030,7 @@ def main() -> int:
         phase_cascade(device, modes=("pallas_packed",), batches=((32, 20),))
         fp32_cascade()
         return 0
+    watch_batchnorms()
     for dtype in (torch.bfloat16, torch.float32):
         for b in (32, 128):
             phase_ln_stages(gen, device, dtype, b)
@@ -3000,6 +3153,10 @@ def main() -> int:
                         composed_library_ms_b128_f32=ln_rows[3]["composed_library_ms"],
                         **row(ln_rows[0]), **suffixed(ln_rows[1], "_b128"),
                         **suffixed(ln_rows[2], "_f32"), **suffixed(ln_rows[3], "_b128_f32")))
+    kernels.append(dict(name="bn_act", route="cuda", source=src + "bn_act.cu", replaces=None,
+                        launches=counts["pallas_packed"]["bn_act"],
+                        launches_f32=counts_f32["pallas_packed"]["bn_act"],
+                        rows=bn_rows))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

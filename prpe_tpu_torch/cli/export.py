@@ -122,6 +122,7 @@ def export_program(model: nn.Module, x: torch.Tensor,
 def load_program(path) -> torch.export.ExportedProgram:
     """``torch.export.load`` with the kernels' custom ops registered."""
     import prpe_tpu_torch.ops.kernels.attention  # noqa: F401
+    import prpe_tpu_torch.ops.kernels.bn_act  # noqa: F401
     import prpe_tpu_torch.ops.kernels.ln_mhsa  # noqa: F401
     import prpe_tpu_torch.ops.kernels.nms  # noqa: F401
 

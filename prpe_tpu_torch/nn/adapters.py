@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from prpe_tpu_torch.nn.common import BatchNorm, Conv2d, PReLU, bilinear_resize, fast_gelu
@@ -39,12 +38,10 @@ class _ConvBNAct(nn.Module):
         self.prelu = PReLU(cout) if act == "prelu" else None
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
-        if self.act == "silu":
-            return F.silu(x)
+        x = self.conv(x)
         if self.act == "gelu":
-            return fast_gelu(x)
-        return self.prelu(x)
+            return fast_gelu(self.bn(x))
+        return self.bn(x, self.prelu if self.act == "prelu" else "silu")
 
 
 class _Adapter(nn.Module):

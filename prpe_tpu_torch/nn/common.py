@@ -13,12 +13,13 @@ parameter names mirror the flax trees, which keeps the weight bridge
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from prpe_tpu_torch.ops.kernels.bn_act import bn_act, bn_act_plain
 from prpe_tpu_torch.parallel.collectives import all_reduce_
 
 
@@ -131,12 +132,47 @@ class _BatchStatsNorm(torch.autograd.Function):
         return dx, dweight, dbias, None, None, None
 
 
+class _Derived:
+    """A tuple of tensors derived from ``sources`` (tensors or None) for an
+    activation dtype, computed again only when that dtype or a source has
+    changed. A source is seen as changed when its version counter moved (an
+    in-place write: ``load_state_dict``, an optimizer step, a train-mode
+    statistics update) or its storage is another one (``.to()``, a swapped
+    ``.data``, a new parameter). The old sources are held so that no new
+    storage can take an old one's address. Inference tensors keep no
+    version counter: from them the tensors are computed on every call."""
+
+    def __init__(self):
+        self.entry = None  # (key, value, the sources held)
+
+    def get(self, sources: Sequence[Optional[torch.Tensor]], dtype: torch.dtype,
+            compute: Callable[[], Tuple[torch.Tensor, ...]]) -> Tuple[torch.Tensor, ...]:
+        try:
+            key = [dtype]
+            for t in sources:
+                if t is not None:
+                    key += (t.data_ptr(), t._version)
+        except RuntimeError:  # an inference tensor
+            return compute()
+        entry = self.entry
+        if entry is None or entry[0] != key:
+            entry = self.entry = (key, compute(), [t.detach() for t in sources if t is not None])
+        return entry[1]
+
+
 class BatchNorm(nn.Module):
     """BatchNorm as the JAX package runs it (flax ``nn.BatchNorm``).
 
     In eval mode, folded into a per-channel scale and bias: computed in fp32
     from the running statistics, then applied as ``x * scale + bias`` in the
     activation dtype, exactly as ``prpe_tpu.nn.common.inference_bn`` does.
+    Where no gradient is recorded (``torch.no_grad``,
+    ``torch.inference_mode``) the scale and bias are computed once and kept
+    until the statistics or parameters change (``_Derived``), and the
+    BatchNorm and the activation ``act`` run as one ``prpe::bn_act``
+    (``ops/kernels/bn_act.py``; the CUDA kernel, with the same roundings,
+    which takes bf16 and fp32 activations in NCHW order or channels-last
+    and raises for any other CUDA tensor).
 
     In train mode, normalised with the batch's statistics (``_BatchStatsNorm``)
     and the running statistics moved as flax moves them:
@@ -147,6 +183,9 @@ class BatchNorm(nn.Module):
     ``dim`` is the channel axis. ``sync_group`` (the mesh's data axis, set
     by ``set_sync_group``) makes the batch statistics those of the global
     batch, so the running statistics come out equal on every rank.
+
+    ``act`` is the activation that follows: None, ``"silu"`` (``F.silu``)
+    or a ``PReLU`` over the same channels.
     """
 
     def __init__(self, channels: int, eps: float, affine: bool = True, dim: int = 1,
@@ -165,8 +204,19 @@ class BatchNorm(nn.Module):
             self.register_parameter("bias", None)
         self.register_buffer("running_mean", torch.empty(channels))
         self.register_buffer("running_var", torch.empty(channels))
+        self._folded = _Derived()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def folded(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval scale and bias in ``dtype``, computed in fp32."""
+        scale = torch.rsqrt(self.running_var.float() + self.eps)
+        if self.weight is not None:
+            scale = scale * self.weight.float()
+        bias = -self.running_mean.float() * scale
+        if self.bias is not None:
+            bias = bias + self.bias.float()
+        return scale.to(dtype), bias.to(dtype)
+
+    def forward(self, x: torch.Tensor, act: Union[None, str, "PReLU"] = None) -> torch.Tensor:
         if self.training:
             y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias, self.dim, self.eps,
                                                  self.sync_group)
@@ -175,16 +225,19 @@ class BatchNorm(nn.Module):
                     m = self.momentum
                     self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                     self.running_var.copy_(m * self.running_var + (1 - m) * var)
-            return y
-        scale = torch.rsqrt(self.running_var.float() + self.eps)
-        if self.weight is not None:
-            scale = scale * self.weight.float()
-        bias = -self.running_mean.float() * scale
-        if self.bias is not None:
-            bias = bias + self.bias.float()
-        shape = [1] * x.dim()
-        shape[self.dim] = -1
-        return x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
+            if act == "silu":
+                return F.silu(y)
+            return y if act is None else act(y)
+        prelu = isinstance(act, PReLU)
+        kind = "prelu" if prelu else act or "none"
+        if torch.is_grad_enabled():
+            # the fused op's plain version, which records the gradient
+            scale, bias = self.folded(x.dtype)
+            alpha = act.alpha.to(x.dtype) if prelu else None
+            return bn_act_plain(x, scale, bias, alpha, kind, self.dim)
+        sources = (self.running_mean, self.running_var, self.weight, self.bias)
+        scale, bias = self._folded.get(sources, x.dtype, lambda: self.folded(x.dtype))
+        return bn_act(x, scale, bias, act.alpha_in(x.dtype) if prelu else None, kind, self.dim)
 
 
 class PReLU(nn.Module):
@@ -193,6 +246,12 @@ class PReLU(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.alpha = nn.Parameter(torch.empty(channels))
+        self._cast = _Derived()
+
+    def alpha_in(self, dtype: torch.dtype) -> torch.Tensor:
+        """``alpha`` cast to ``dtype``, kept until it changes (``_Derived``);
+        for use where no gradient is recorded."""
+        return self._cast.get((self.alpha,), dtype, lambda: (self.alpha.to(dtype),))[0]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         alpha = self.alpha.to(x.dtype).view(1, -1, *([1] * (x.dim() - 2)))
@@ -261,8 +320,7 @@ class ConvBN(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
-        return F.silu(x) if self.act else x
+        return self.bn(self.conv(x), "silu" if self.act else None)
 
 
 def nearest_upsample(x: torch.Tensor, scale: int = 2) -> torch.Tensor:

@@ -85,7 +85,7 @@ class BasicBlockIR(_IRUnit):
 
     def forward(self, x):
         r = self.conv1(self.bn0(x))
-        r = self.conv2(self.prelu(self.bn1(r)))
+        r = self.conv2(self.bn1(r, self.prelu))
         return self.finish(self.bn2(r), x)
 
 
@@ -106,8 +106,8 @@ class BottleneckIR(_IRUnit):
         self.bn3 = BatchNorm(depth, _BN_EPS)
 
     def forward(self, x):
-        r = self.prelu1(self.bn1(self.conv1(self.bn0(x))))
-        r = self.prelu2(self.bn2(self.conv2(r)))
+        r = self.bn1(self.conv1(self.bn0(x)), self.prelu1)
+        r = self.bn2(self.conv2(r), self.prelu2)
         return self.finish(self.bn3(self.conv3(r)), x)
 
 
@@ -143,7 +143,7 @@ class IRNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = self.input_prelu(self.input_bn(self.input_conv(x)))
+        x = self.input_bn(self.input_conv(x), self.input_prelu)
         for i in range(self.n_blocks):
             x = getattr(self, f"body{i}")(x)
         x = self.dropout(self.output_bn(x)).flatten(1)  # (c, h, w) order

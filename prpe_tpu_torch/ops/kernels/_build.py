@@ -49,12 +49,17 @@ SIGNATURES = {
         "prpe_linear_f32": [_P] * 5 + [_I] * 3 + [_P],
         "prpe_linear_bf16": [_P] * 5 + [_I] * 3 + [_P],
     },
+    "bn_act": {
+        "prpe_bn_act_f32": [_P] * 5 + [_I] * 5 + [_P],
+        "prpe_bn_act_bf16": [_P] * 5 + [_I] * 5 + [_P],
+    },
 }
 
 # one counter per kernel route; ``mhsa`` and ``mhsa_bhtd`` share a library,
-# and so do ``ln_mhsa`` and its stages alone (``layernorm``, ``linear``)
+# and so do ``ln_mhsa`` and its stages alone (``layernorm``, ``linear``);
+# ``bn_act`` is eval BatchNorm with its activation
 launches: Dict[str, int] = {
-    name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa", "layernorm", "linear")}
+    name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa", "layernorm", "linear", "bn_act")}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

@@ -155,10 +155,15 @@ def profile_top(fn, top: int = 12, iters: int = 1, modules=None, name: str = Non
                 fn()
             if cuda:
                 torch.cuda.synchronize()
+    from prpe_tpu_torch.utils import profiling
+
+    # ranges, not work, on the card's timeline too: the window, the modules'
+    # ranges and the spans the cascade runner opens while a profiler records
+    ranges = {WINDOW} | {s["name"] for s in profiling.spans()}
     rows = []
     for e in prof.key_averages():
-        if e.key == WINDOW or e.key.startswith("module::"):
-            continue  # the ranges (on the card's timeline too), not work
+        if e.key in ranges or e.key.startswith("module::"):
+            continue
         if cuda and e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             rows.append((e.self_device_time_total / 1e3 / iters, e.count / iters, e.key[:80]))
         elif not cuda and e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0:

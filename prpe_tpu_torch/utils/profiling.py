@@ -44,8 +44,9 @@ The counters of one call are the gating funnel: ``frames`` -> ``persons``
 (valid detections) and ``faces`` -> ``face_slots_used`` of ``face_slots``
 (top-F) -> ``matched_faces`` -> ``gated_persons`` -> ``pose_slots_used`` of
 ``pose_slots`` (top-G), with ``face_budget_saturated`` (1 where valid faces
-outnumbered the face slots) and the call's NMS (K1) and packed attention
-(K2) launches, ``k1_launches`` and ``k2_launches``.
+outnumbered the face slots) and the call's NMS (K1), packed attention (K2)
+and fused eval BatchNorm launches, ``k1_launches``, ``k2_launches`` and
+``bn_act_launches``.
 
 The records of the most recent ``RING_CALLS`` calls are kept. :func:`spans`
 and :func:`counters` return those of the latest stretch of calls during
@@ -73,7 +74,7 @@ from prpe_tpu_torch.ops.kernels._build import launches
 # ten small masks each, a few MB of host memory at most
 RING_CALLS = 1024
 # kernel route in ``_build.launches`` -> the counter of its launches a call
-LAUNCH_COUNTERS = {"nms": "k1_launches", "mhsa": "k2_launches"}
+LAUNCH_COUNTERS = {"nms": "k1_launches", "mhsa": "k2_launches", "bn_act": "bn_act_launches"}
 
 
 def count_flops(fn: Callable, *args, **kwargs) -> Dict[str, float]:

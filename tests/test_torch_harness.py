@@ -174,6 +174,26 @@ def test_trace_summary_of_card_events(tmp_path):
     assert s["busy_share"] == pytest.approx(0.4) and s["window_ms"] == pytest.approx(0.05)
 
 
+def test_profile_top_leaves_out_the_runners_spans():
+    """The spans a runner opens while the profiler records are ranges, not
+    work: on the card the profiler puts them on the device's timeline too,
+    where their whole length would count as kernel time. A span around a
+    sleep shows it on the CPU, where its self time is the sleep."""
+    import time
+
+    from prpe_tpu_torch.utils import profiling
+
+    def call():
+        with profiling.call("cascade.call", 1, torch.device("cpu")) as tr:
+            with tr.span("cascade.detect"):
+                time.sleep(0.05)
+                torch.ones(32, 32) @ torch.ones(32, 32)
+
+    p = dump_trace_ops.profile_top(call)
+    assert not any(r[2].startswith("cascade.") for r in p["top"])
+    assert 0 < p["kernel_ms"] < 25
+
+
 def test_bench_attention_and_vit_ln_dry_run(capsys):
     assert bench_attention.main(["--dry-run", "pallas_packed", "einsum"]) == 0
     out = capsys.readouterr().out
