@@ -20,7 +20,10 @@ exit on the first fault:
    candidate valid, with none valid and with one image of none, at
    thresholds 0.0 and 0.65; the attention at T = 1, 192 (the longest
    sequence whose logits stay in registers) and 193 for every head dim; the
-   half-block's stages alone in both dtypes (fp32 within 1e-4);
+   half-block's stages alone in both dtypes (fp32 within 1e-4); the fused
+   eval BatchNorm (bit for bit, each activation route, ResNet-50-vd's ReLU
+   among them) and the deformable attention at the RT-DETR cell's shapes
+   (bf16 and fp32, ``tests/test_torch_msda_cuda.py``'s tolerances);
 2. reference: a tiny fp32 cascade on the card against the same cascade on
    the CPU (where the kernels' plain versions run);
 3. attn_modes: for each ``PRPE_ATTN_MODE`` of ``tools/bench_attention.py``,
@@ -31,7 +34,11 @@ exit on the first fault:
    ViTPose-B) with random seeded weights, in the default attention mode
    and under ``pallas_lnfused``: each once with every launch counter at zero
    to show the path went through its kernels, then images/s at batch 32
-   and 128, and a profile of the kernels that take the card's time;
+   and 128, and a profile of the kernels that take the card's time; then
+   the cascade with RT-DETR-R50 as its person detector at batch 128
+   (``cascade_rtdetr``): one call with the counters at zero (6
+   deformable-attention launches, one ``bn_act`` a BatchNorm), images/s,
+   peak memory and a profile;
 5. cascade in fp32: the same cascade with ``dtype=torch.float32`` (the
    dtype the JAX package's CLI and ``bench.py`` serve in off the TPU) in the
    default mode and under ``pallas_lnfused``: launches checked, images/s at
@@ -349,11 +356,12 @@ def phase_nms(gen, device, b: int, k: int, thr: float = 0.65):
     return row
 
 
-# the fused eval BatchNorm's rows: the cell's largest sites (YOLO's first
-# ConvBN, IR-50's input BatchNorm -> PReLU, its last block) in the
-# channels-last layout cuDNN gives them, NCHW sites (IR-50's 14x14 planes
-# come so), fp32 once
+# the fused eval BatchNorm's rows: the cells' largest sites (YOLO's first
+# ConvBN, IR-50's input BatchNorm -> PReLU, its last block, ResNet-50-vd's
+# third stem conv -> ReLU) in the channels-last layout cuDNN gives them,
+# NCHW sites (IR-50's 14x14 planes come so), fp32 once
 BN_ACT_ROWS = ((torch.bfloat16, (128, 16, 320, 320), "silu", "channels_last"),
+               (torch.bfloat16, (128, 64, 320, 320), "relu", "channels_last"),
                (torch.bfloat16, (256, 64, 112, 112), "prelu", "channels_last"),
                (torch.bfloat16, (256, 512, 7, 7), "none", "channels_last"),
                (torch.bfloat16, (128, 16, 320, 320), "silu", "nchw"),
@@ -369,8 +377,8 @@ def parent_bn_eval(bn, x, act):
     scale = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
     bias = -bn.running_mean.float() * scale + bn.bias.float()
     y = x * scale.to(x.dtype).view(1, -1, 1, 1) + bias.to(x.dtype).view(1, -1, 1, 1)
-    if act == "silu":
-        return F.silu(y)
+    if act in ("silu", "relu"):
+        return getattr(F, act)(y)
     return y if act is None else act(y)
 
 
@@ -412,7 +420,8 @@ def phase_bn_act(gen, device, dtype, shape, act: str, layout: str):
         bn.bias.zero_()
         bn.running_mean.zero_()
         bn.running_var.fill_(1.0)
-    module_act = {"none": None, "silu": "silu", "prelu": PReLU(c).to(device)}[act]
+    module_act = {"none": None, "silu": "silu", "relu": "relu",
+                  "prelu": PReLU(c).to(device)}[act]
     if act == "prelu":
         with torch.no_grad():
             module_act.alpha.fill_(0.25)
@@ -426,6 +435,56 @@ def phase_bn_act(gen, device, dtype, shape, act: str, layout: str):
                act=act, layout=layout, max_abs_err=float((y.float() - want.float()).abs().max()),
                ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
                tb_per_s=nbytes / ms / 1e9, **host)
+    emit("kernel", **row)
+    return row
+
+
+# RT-DETR-R50's levels at 640^2: strides 8, 16 and 32
+MSDA_LEVELS = (80, 80, 40, 40, 20, 20)
+
+
+def phase_msda(gen, device, dtype, b: int = 128, lq: int = 300, h: int = 8, d: int = 32,
+               points: int = 4):
+    """The deformable-attention kernel (``csrc/ms_deform_attn.cu``) at the
+    cell ``cascade_rtdetr.b128``'s shapes against its plain version on the
+    same card inputs, locations inside and outside the maps, with the
+    tolerances of ``tests/test_torch_msda_cuda.py`` (against the plain
+    version in fp32: 2^-12 of the magnitudes it sums, and in bf16 2^-8 of
+    the result more); device ms against the least time of
+    ``benchmark/reference/flops_rtdetr.py``'s bytes and operations."""
+    from benchmark.reference.flops_rtdetr import msda_bytes, msda_ops
+    from prpe_tpu_torch.ops.kernels import launches
+    from prpe_tpu_torch.ops.kernels.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+
+    shapes, levels = list(MSDA_LEVELS), len(MSDA_LEVELS) // 2
+    s = sum(shapes[2 * l] * shapes[2 * l + 1] for l in range(levels))
+    value = torch.randn(b, s, h, d, generator=gen, device=device).to(dtype)
+    loc = torch.rand(b, lq, h, levels, points, 2, generator=gen, device=device) * 1.2 - 0.1
+    w = torch.softmax(torch.randn(b, lq, h, levels * points, generator=gen, device=device),
+                      -1).view(b, lq, h, levels, points)
+    kernel = lambda: ms_deform_attn(value, shapes, loc, w)  # noqa: E731
+    with torch.inference_mode():
+        before = launches["msda"]
+        got = kernel()
+        torch.cuda.synchronize()
+        if launches["msda"] != before + 1:
+            fail("ms_deform_attn did not count its launch")
+        want = ms_deform_attn_plain(value.float(), shapes, loc, w)
+        tol = 2.0**-12 * ms_deform_attn_plain(value.float().abs(), shapes, loc, w)
+        if dtype == torch.bfloat16:
+            tol += 2.0**-8 * want.abs()
+        err = (got.float() - want).abs()
+        worst = float((err / tol.clamp(min=1e-30)).max())
+        if not worst <= 1.0:
+            fail(f"ms_deform_attn {dtype} exceeds its tolerance {worst:.3g} times")
+        ms = time_ms(kernel)
+        plain_ms = time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, w), runs=5, warmup=1)
+        bnd, by = bound_ms(msda_bytes(b, lq, s, h, d, levels, points, value.element_size()),
+                           msda_ops(b, lq, s, h, d, levels, points), PEAK_FLOPS[dtype])
+        row = dict(name="ms_deform_attn", dtype=str(dtype).replace("torch.", ""), B=b, Lq=lq,
+                   S=s, H=h, D=d, L=levels, P=points, max_abs_err=float(err.max()),
+                   tolerance_used=worst, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                   library_ms=None, host_us=host_us(kernel))
     emit("kernel", **row)
     return row
 
@@ -843,6 +902,63 @@ def phase_cascade(device, modes=("pallas_packed", "pallas_lnfused"), pose=None,
              device_busy_share=profile.get("kernel_ms", 0.0) / wall_ms,
              attention_kernel_ms=profile["attention_ms"], ln_mhsa_stage_ms=profile["ln_mhsa"],
              top_device_ms=profile)
+    return counts
+
+
+def phase_cascade_rtdetr(device, batch: int = 128, iters: int = 8, size: int = 640, pose=None,
+                         irnet_layers: int = 50, rtdetr=None):
+    """The cascade with RT-DETR-R50 as its person detector, the model of the
+    cell ``cascade_rtdetr.b128`` (bf16, random seeded weights, unless a
+    smaller ``pose`` / ``rtdetr`` / ``size`` is given): one call with every
+    counter at zero (one deformable-attention launch a decoder layer, one
+    ``bn_act`` a BatchNorm, K1 on the faces alone, K2 once a ViT block),
+    then images/s and peak memory at ``batch`` and a profile of one call.
+    Returns the launches of that call."""
+    from prpe_tpu_torch.core.config import (CascadeConfig, DetectionConfig, PoseConfig,
+                                            RTDETRConfig)
+    from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
+    from prpe_tpu_torch.ops.kernels import launches
+
+    pose, rtdetr = pose or PoseConfig(), rtdetr or RTDETRConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = CascadeModel(DetectionConfig(image_size=size), pose, irnet_layers=irnet_layers,
+                         dtype=torch.bfloat16, device=device, seed=0, person_detector="rtdetr",
+                         rtdetr=rtdetr)
+    cfg = CascadeConfig(max_persons=8, max_faces=8, match_threshold=0.3, conf_threshold=0.0)
+    gen = torch.Generator(device=device).manual_seed(1)
+    gallery = torch.nn.functional.normalize(
+        torch.randn(32, 512, generator=gen, device=device), dim=-1)
+    images = torch.rand(batch, size, size, 3, generator=gen, device=device).to(torch.bfloat16)
+    run = build_cascade_runner(model, cfg, pose_capacity=batch, device=device)
+    init_s = time.perf_counter() - t0
+    reset_counts()
+    res = run(images, gallery)
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    want = expected_launches("pallas_packed", pose.vit_layers, nms=1)
+    want.update(bn_act=batchnorms(model), msda=rtdetr.num_decoder_layers)
+    if counts != want:
+        fail(f"the RT-DETR cascade launched {counts}, expected {want}")
+    check_result(res, batch, cfg.max_persons, cfg.max_faces, batch, pose.num_keypoints)
+    if tuple(res.person_query_idx.shape) != (batch, cfg.max_persons):
+        fail(f"person_query_idx has shape {tuple(res.person_query_idx.shape)}")
+    profile = profile_top(lambda: run(images, gallery))
+    for _ in range(2):
+        run(images, gallery)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        out = run(images, gallery)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check_result(out, batch, cfg.max_persons, cfg.max_faces, batch, pose.num_keypoints)
+    wall_ms = 1e3 * wall / iters
+    emit("cascade_rtdetr", metric=f"rtdetr_cascade_{size}_throughput", unit="images/sec",
+         dtype="bfloat16", images_per_s=batch * iters / wall, wall_ms_per_call=wall_ms,
+         launches_per_call=counts, init_s=init_s,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         device_busy_share=profile.get("kernel_ms", 0.0) / wall_ms, top_device_ms=profile)
     return counts
 
 
@@ -1681,7 +1797,7 @@ def collect_ranks(world: int, q, procs, timeout_s: float = 900.0) -> list:
 def count_on_cpu() -> None:
     """For a rehearsal on the CPU: each custom op's CPU kernel (its plain
     version) counts a launch, as its CUDA kernel does on the card."""
-    from prpe_tpu_torch.ops.kernels import _build, attention, bn_act, nms
+    from prpe_tpu_torch.ops.kernels import _build, attention, bn_act, ms_deform_attn, nms
 
     def counting(op, plain, key):
         def fn(*args):
@@ -1693,6 +1809,7 @@ def count_on_cpu() -> None:
     counting("prpe::mhsa_bhtd", attention.mhsa_bhtd_plain, "mhsa_bhtd")
     counting("prpe::nms_keep", nms.nms_keep_plain, "nms")
     counting("prpe::bn_act", bn_act.bn_act_plain, "bn_act")
+    counting("prpe::ms_deform_attn", ms_deform_attn.ms_deform_attn_plain, "msda")
 
 
 def _rank_device(device_str: str) -> torch.device:
@@ -2977,7 +3094,8 @@ def suffixed(row, suffix: str) -> dict:
 def kernel_rows(gen, device):
     """The serving-shape kernel rows: K1 at K = 256 and 1024; K2 and K3 in
     bf16 and fp32 at B = 32 and 128; K4 in both dtypes at B = 32 and 128;
-    the fused eval BatchNorm at ``BN_ACT_ROWS``."""
+    the fused eval BatchNorm at ``BN_ACT_ROWS``; the deformable attention in
+    bf16 and fp32 at 128 frames."""
     bf, f32 = torch.bfloat16, torch.float32
     nms_rows = [phase_nms(gen, device, 32, k) for k in (256, 1024)]
     # the pose stage runs at pose_capacity = batch
@@ -2986,7 +3104,8 @@ def kernel_rows(gen, device):
     bhtd_rows = [phase_mhsa(gen, device, dt, "bhtd", b) for dt, b in shapes]
     ln_rows = [phase_ln_mhsa(gen, device, dt, b) for dt in (bf, f32) for b in (32, 128)]
     bn_rows = [phase_bn_act(gen, device, *spec) for spec in BN_ACT_ROWS]
-    return nms_rows, mhsa_rows, bhtd_rows, ln_rows, bn_rows
+    msda_rows = [phase_msda(gen, device, dt) for dt in (bf, f32)]
+    return nms_rows, mhsa_rows, bhtd_rows, ln_rows, bn_rows, msda_rows
 
 
 def main() -> int:
@@ -3021,7 +3140,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, root=os.path.abspath(args.root or "."))
 
     gen = torch.Generator(device=device).manual_seed(0)
-    nms_rows, mhsa_rows, bhtd_rows, ln_rows, bn_rows = kernel_rows(gen, device)
+    nms_rows, mhsa_rows, bhtd_rows, ln_rows, bn_rows, msda_rows = kernel_rows(gen, device)
     fp32_cascade = lambda: phase_cascade(  # noqa: E731
         device, batches=((32, 10),), dtype=torch.float32)
     if args.kernels_only:
@@ -3043,6 +3162,7 @@ def main() -> int:
     mode_counts = phase_attn_modes(device)
     counts = phase_cascade(device)
     counts_f32 = fp32_cascade()
+    rtdetr_counts = phase_cascade_rtdetr(device)
     phase_combined(device)
     phase_infer_cli(device)
     grad_rows = {(dt, layout): phase_mhsa_grad(gen, device, dt, layout)
@@ -3156,7 +3276,10 @@ def main() -> int:
     kernels.append(dict(name="bn_act", route="cuda", source=src + "bn_act.cu", replaces=None,
                         launches=counts["pallas_packed"]["bn_act"],
                         launches_f32=counts_f32["pallas_packed"]["bn_act"],
-                        rows=bn_rows))
+                        launches_rtdetr=rtdetr_counts["bn_act"], rows=bn_rows))
+    kernels.append(dict(name="ms_deform_attn", route="cuda", source=src + "ms_deform_attn.cu",
+                        replaces=None, launches=rtdetr_counts["msda"],
+                        **row(msda_rows[0]), **suffixed(msda_rows[1], "_f32")))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

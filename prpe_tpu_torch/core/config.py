@@ -219,6 +219,24 @@ class CascadeConfig:
 
 
 @dataclass(frozen=True)
+class RTDETRConfig:
+    """RT-DETR as the cascade's person detector (``nn/rtdetr.py``): the
+    widths of ``rtdetr_r50vd_6x_coco.yml`` (RT-DETR-R50). Port-only: the JAX
+    package has no detection transformer."""
+
+    num_classes: int = 80
+    # the class whose sigmoid score the cascade serves as a person
+    person_label: int = 0
+    hidden: int = 256
+    num_queries: int = 300
+    heads: int = 8
+    ffn: int = 1024
+    levels: int = 3
+    points: int = 4
+    num_decoder_layers: int = 6
+
+
+@dataclass(frozen=True)
 class FrameworkConfig:
     model: CombinedModelConfig = field(default_factory=CombinedModelConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)

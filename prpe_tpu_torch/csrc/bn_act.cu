@@ -5,7 +5,7 @@
 // bias are the per-channel constants that eval BatchNorm folds from its
 // running statistics, already in the activation dtype
 // (prpe_tpu_torch/nn/common.py::BatchNorm computes them once and caches them);
-// act is none, SiLU, or PReLU with a per-channel alpha.
+// act is none, SiLU, PReLU with a per-channel alpha, or ReLU.
 //
 // Replaces no TPU kernel: the JAX package applies inference BatchNorm as
 // x * scale + bias in the activation dtype (prpe_tpu/nn/common.py::
@@ -17,7 +17,8 @@
 // kernels store it: after the product, after the sum and after the
 // activation. The product and the sum are __fmul_rn / __fadd_rn, which nvcc
 // never contracts into an FMA. SiLU is ATen's x / (1 + exp(-x)) in fp32
-// (expf, IEEE division); PReLU is where(x >= 0, x, round(alpha * x)). So the
+// (expf, IEEE division); PReLU is where(x >= 0, x, round(alpha * x)); ReLU
+// is ATen's clamp_min(x, 0): NaN kept, else fmaxf(x, 0) in fp32. So the
 // output equals the plain version (ops/kernels/bn_act.py::bn_act_plain) bit
 // for bit.
 //
@@ -58,7 +59,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kMaxChannels = 4096;  // three fp32 tables of C fit in 48 KB of shared memory
-enum { kNone = 0, kSilu = 1, kPrelu = 2 };
+enum { kNone = 0, kSilu = 1, kPrelu = 2, kRelu = 3 };
 // the routes (see the top of the file): a vector in one channel, in at most
 // two, over consecutive channels read from shared memory or held in
 // registers; one element an item
@@ -106,6 +107,7 @@ __device__ __forceinline__ T apply(T x, float s, float b, float a) {
   v = stored<T>(__fadd_rn(v, b));
   if (kAct == kSilu) v = v / (1.0f + expf(-v));
   if (kAct == kPrelu && !(v >= 0.0f)) v = __fmul_rn(a, v);
+  if (kAct == kRelu && v == v) v = fmaxf(v, 0.0f);
   return from_f<T>(v);
 }
 
@@ -267,7 +269,7 @@ template <typename T>
 int launch(const void* x, const void* scale, const void* bias, const void* alpha, void* y,
            int outer, int channels, int inner, int act, int device, void* stream) {
   if (outer <= 0 || channels <= 0 || channels > kMaxChannels || inner <= 0 || act < kNone ||
-      act > kPrelu || (act == kPrelu && alpha == nullptr))
+      act > kRelu || (act == kPrelu && alpha == nullptr))
     return (int)cudaErrorInvalidValue;
   constexpr int kVec = 16 / (int)sizeof(T);
   const long long n = (long long)outer * channels * inner;
@@ -304,6 +306,8 @@ int launch(const void* x, const void* scale, const void* bias, const void* alpha
       return (int)by_mode<T, kSilu>(mode, a, device, s);
     case kPrelu:
       return (int)by_mode<T, kPrelu>(mode, a, device, s);
+    case kRelu:
+      return (int)by_mode<T, kRelu>(mode, a, device, s);
     default:
       return (int)by_mode<T, kNone>(mode, a, device, s);
   }

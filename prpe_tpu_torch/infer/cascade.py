@@ -9,6 +9,15 @@ in a CUDA graph. The kernels of the path are the greedy NMS (twice per
 call) and, once per ViT block, the attention kernel that ``PRPE_ATTN_MODE``
 selects (``nn/vit.py``): the packed MHSA by default.
 
+The person detector is a YOLOv11 by default (``person_detector="yolo"``)
+or RT-DETR (``"rtdetr"``, ``nn/rtdetr.py``), which needs no decode and no
+NMS: the sigmoid of its person column over the last decoder layer's
+queries, the confidence gate, the stable top-``max_persons`` and the boxes
+from cxcywh to xyxy pixels, in static shapes; its runner's results carry
+the anchors the detector selected and the query of each served person
+(:class:`RTDETRCascadeResult`). RT-DETR adds one deformable-attention
+kernel a decoder layer (``ops/kernels/ms_deform_attn.py``).
+
 While a ``torch.profiler`` records, each call keeps its stage spans (host
 and device time) and the counters of its gating funnel
 (``utils/profiling.py``); otherwise they cost one branch a call.
@@ -21,12 +30,14 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
-from prpe_tpu_torch.core.config import CascadeConfig, DetectionConfig, PoseConfig
+from prpe_tpu_torch.core.config import CascadeConfig, DetectionConfig, PoseConfig, RTDETRConfig
 from prpe_tpu_torch.core.device import resolve_device
 from prpe_tpu_torch.nn.common import materialize
 from prpe_tpu_torch.nn.irnet import IRNet
+from prpe_tpu_torch.nn.rtdetr import RTDETR
 from prpe_tpu_torch.nn.vit import ViTPose
 from prpe_tpu_torch.nn.yolo import YOLO, decode_predictions
+from prpe_tpu_torch.ops.boxes import cxcywh_to_xyxy
 from prpe_tpu_torch.ops.heatmap import decode_heatmaps, flip_heatmaps
 from prpe_tpu_torch.ops.nms import Detections, non_max_suppression, topk_stable
 from prpe_tpu_torch.ops.roi import crop_and_resize_batch
@@ -36,25 +47,44 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-class CascadeModel(nn.Module):
-    """The four component models of the cascade (two YOLOv11 detectors,
-    IR-Net, ViTPose) with fp32 parameters and compute in ``dtype``.
+PERSON_DETECTORS = ("yolo", "rtdetr")
 
-    Built on ``device`` (CUDA unless the caller names another) and filled
-    from a ``torch.Generator`` seeded with ``seed``; load real weights with
+
+class CascadeModel(nn.Module):
+    """The four component models of the cascade (the person and the face
+    detector, IR-Net, ViTPose) with fp32 parameters and compute in ``dtype``.
+
+    The person detector is a YOLOv11 (``person_yolo``) or, with
+    ``person_detector="rtdetr"``, RT-DETR of ``rtdetr``'s widths
+    (``person_rtdetr``); the face detector is a YOLOv11. Built on
+    ``device`` (CUDA unless the caller names another) and filled from a
+    ``torch.Generator`` seeded with ``seed``; load real weights with
     ``load_state_dict`` (see ``models/porting.py``).
     """
 
     def __init__(self, detection: DetectionConfig = DetectionConfig(),
                  pose_cfg: PoseConfig = PoseConfig(), irnet_layers: int = 50,
-                 dtype: torch.dtype = torch.float32, *, device=None, seed: int = 0):
+                 dtype: torch.dtype = torch.float32, *, device=None, seed: int = 0,
+                 person_detector: str = "yolo", rtdetr: RTDETRConfig = RTDETRConfig()):
         super().__init__()
+        if person_detector not in PERSON_DETECTORS:
+            raise ValueError(f"person_detector {person_detector!r}: one of {PERSON_DETECTORS}")
         self.detection = detection
         self.pose_cfg = pose_cfg
         self.dtype = dtype
+        self.person_detector = person_detector
+        self.rtdetr_cfg = rtdetr
         dev = resolve_device(device)
         with torch.device("meta"):
-            self.person_yolo = YOLO(nc=1, variant=detection.variant, dtype=dtype)
+            if person_detector == "yolo":
+                self.person_yolo = YOLO(nc=1, variant=detection.variant, dtype=dtype)
+            else:
+                r = rtdetr
+                self.person_rtdetr = RTDETR(
+                    num_classes=r.num_classes, hidden=r.hidden, num_queries=r.num_queries,
+                    heads=r.heads, ffn=r.ffn, levels=r.levels, points=r.points,
+                    num_decoder_layers=r.num_decoder_layers, image_size=detection.image_size,
+                    dtype=dtype)
             self.face_yolo = YOLO(nc=1, variant=detection.variant, dtype=dtype)
             self.irnet = IRNet(num_layers=irnet_layers, dtype=dtype)
             self.vitpose = ViTPose(
@@ -84,6 +114,14 @@ class CascadeResult(NamedTuple):
     pose_valid: torch.Tensor  # (G,)
 
 
+# the RT-DETR runner's results: a CascadeResult's fields, then the anchors
+# the detector selected, (B, num_queries), and the query each person slot
+# holds, (B, Kp) (padding slots hold one too)
+RTDETRCascadeResult = NamedTuple("RTDETRCascadeResult", [
+    *CascadeResult.__annotations__.items(),
+    ("person_anchor_idx", torch.Tensor), ("person_query_idx", torch.Tensor)])
+
+
 def _face_person_gate(person_det: Detections, face_det: Detections,
                       face_matched: torch.Tensor) -> torch.Tensor:
     """person_gated[b, i] = any matched face whose centre lies in person box i."""
@@ -110,7 +148,8 @@ def build_cascade_runner(model: CascadeModel, cascade_cfg: CascadeConfig = Casca
     ``images`` (B, S, S, 3) NHWC RGB in [0, 1] (fp32 or bf16) or uint8;
     ``gallery`` (N_ids, 512) L2-normalised identity embeddings. Both are
     moved to ``device`` (CUDA unless the caller names another), where the
-    model must already live.
+    model must already live. With RT-DETR as the person detector ``run``
+    returns an :class:`RTDETRCascadeResult`.
     """
     dev = resolve_device(device)
     if model.device != dev:
@@ -135,6 +174,28 @@ def build_cascade_runner(model: CascadeModel, cascade_cfg: CascadeConfig = Casca
             conf_threshold=cascade_cfg.conf_threshold, iou_threshold=det.iou_threshold,
             max_det=max_det, pre_nms_top_k=nms_k)
 
+    rtdetr = model.person_detector == "rtdetr"
+
+    def detect_rtdetr(x: torch.Tensor, tr):
+        """RT-DETR's persons: the sigmoid of the person column over the
+        queries, gated at the confidence threshold, the top ``kp`` of each
+        frame (ties to the lower query), xyxy pixel boxes; and the output."""
+        with tr.span("cascade.person_rtdetr"):
+            out = model.person_rtdetr(x, tr.span)
+            score = torch.sigmoid(out.logits[..., model.rtdetr_cfg.person_label])
+            gated = torch.where(score > cascade_cfg.conf_threshold, score,
+                                torch.tensor(float("-inf"), device=dev))
+            top, query = topk_stable(gated, kp)
+            valid = torch.isfinite(top)
+            boxes = cxcywh_to_xyxy(torch.gather(out.boxes, 1, query[..., None].expand(-1, -1, 4)))
+            boxes = boxes * torch.tensor([x.shape[2], x.shape[1]] * 2, device=dev)
+            persons = Detections(
+                boxes=torch.where(valid[..., None], boxes, torch.zeros_like(boxes)),
+                scores=torch.where(valid, top, torch.zeros_like(top)),
+                classes=torch.where(valid, model.rtdetr_cfg.person_label, -1).to(torch.int32),
+                valid=valid)
+        return persons, out.selected, query
+
     @torch.inference_mode()
     def run(images: torch.Tensor, gallery: torch.Tensor) -> CascadeResult:
         b = images.shape[0]
@@ -155,7 +216,11 @@ def build_cascade_runner(model: CascadeModel, cascade_cfg: CascadeConfig = Casca
 
         # ---- stage 1: detection -------------------------------------------
         with tr.span("cascade.detect"):
-            person_det = detect(model.person_yolo, x_det, kp, nms_k, tr, "cascade.person_yolo")
+            if rtdetr:
+                person_det, anchor_idx, query_idx = detect_rtdetr(x_det, tr)
+            else:
+                person_det = detect(model.person_yolo, x_det, kp, nms_k, tr,
+                                    "cascade.person_yolo")
             face_det = detect(model.face_yolo, x_det, kf, nms_k, tr, "cascade.face_yolo")
 
         # ---- stage 2: top-F face crops -> IR-Net -> gallery match ---------
@@ -217,7 +282,7 @@ def build_cascade_runner(model: CascadeModel, cascade_cfg: CascadeConfig = Casca
                 face_slots_used=fs_valid, matched_faces=matched, gated_persons=gated,
                 pose_slots=g_slots, pose_slots_used=slot_valid,
                 face_budget_saturated=face_budget_saturated)
-        return CascadeResult(
+        result = CascadeResult(
             persons=person_det,
             faces=face_det,
             face_identity=face_identity,
@@ -230,5 +295,6 @@ def build_cascade_runner(model: CascadeModel, cascade_cfg: CascadeConfig = Casca
             pose_scores=pose_scores,
             pose_valid=slot_valid,
         )
+        return RTDETRCascadeResult(*result, anchor_idx, query_idx) if rtdetr else result
 
     return run

@@ -184,8 +184,8 @@ class BatchNorm(nn.Module):
     by ``set_sync_group``) makes the batch statistics those of the global
     batch, so the running statistics come out equal on every rank.
 
-    ``act`` is the activation that follows: None, ``"silu"`` (``F.silu``)
-    or a ``PReLU`` over the same channels.
+    ``act`` is the activation that follows: None, ``"silu"`` (``F.silu``),
+    ``"relu"`` (``F.relu``) or a ``PReLU`` over the same channels.
     """
 
     def __init__(self, channels: int, eps: float, affine: bool = True, dim: int = 1,
@@ -227,6 +227,8 @@ class BatchNorm(nn.Module):
                     self.running_var.copy_(m * self.running_var + (1 - m) * var)
             if act == "silu":
                 return F.silu(y)
+            if act == "relu":
+                return F.relu(y)
             return y if act is None else act(y)
         prelu = isinstance(act, PReLU)
         kind = "prelu" if prelu else act or "none"

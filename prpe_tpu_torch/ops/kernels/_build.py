@@ -53,13 +53,19 @@ SIGNATURES = {
         "prpe_bn_act_f32": [_P] * 5 + [_I] * 5 + [_P],
         "prpe_bn_act_bf16": [_P] * 5 + [_I] * 5 + [_P],
     },
+    "ms_deform_attn": {
+        "prpe_msda_f32": [_P] * 5 + [_I] * 8 + [_P],
+        "prpe_msda_bf16": [_P] * 5 + [_I] * 8 + [_P],
+    },
 }
 
 # one counter per kernel route; ``mhsa`` and ``mhsa_bhtd`` share a library,
 # and so do ``ln_mhsa`` and its stages alone (``layernorm``, ``linear``);
-# ``bn_act`` is eval BatchNorm with its activation
+# ``bn_act`` is eval BatchNorm with its activation, ``msda`` multi-scale
+# deformable attention
 launches: Dict[str, int] = {
-    name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa", "layernorm", "linear", "bn_act")}
+    name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa", "layernorm", "linear", "bn_act",
+                         "msda")}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

@@ -5,8 +5,10 @@
 activation dtype, rounded to it after the product, after the sum and after
 the activation, as the separate PyTorch ops round (``nn/common.py::
 BatchNorm``'s eval expression, ``prpe_tpu/nn/common.py::inference_bn``).
-``act`` is ``"none"``, ``"silu"`` (``F.silu``) or ``"prelu"`` (``nn/common.py::
-PReLU``: ``where(y >= 0, y, alpha * y)``). It replaces no TPU kernel.
+``act`` is ``"none"``, ``"silu"`` (``F.silu``), ``"prelu"`` (``nn/common.py::
+PReLU``: ``where(y >= 0, y, alpha * y)``) or ``"relu"`` (``F.relu``, after
+the BatchNorms of ResNet-50-vd in ``nn/resnet.py``). It replaces no TPU
+kernel.
 
 The launch is the custom op ``prpe::bn_act`` (a fake implementation gives
 its output), so an exported program holds it as one node. Its CPU
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from prpe_tpu_torch.ops.kernels import _build
 
-ACTS = {"none": 0, "silu": 1, "prelu": 2}
+ACTS = {"none": 0, "silu": 1, "prelu": 2, "relu": 3}
 # most channels the kernel stages in shared memory (``kMaxChannels``)
 MAX_CHANNELS = 4096
 _MAX_ITEMS = 2**31 - 1
@@ -46,6 +48,8 @@ def bn_act_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         return F.silu(y)
     if act == "prelu":
         return torch.where(y >= 0, y, alpha.view(shape) * y)
+    if act == "relu":
+        return F.relu(y)
     return y
 
 

@@ -40,13 +40,22 @@ The spans of one call (name: parent, what it covers):
     decode, keypoints;
   * ``cascade.vitpose``: pose; ViTPose's forward(s).
 
+With RT-DETR as the person detector (``person_detector="rtdetr"``),
+``cascade.person_rtdetr`` (detect; the whole detector and the person
+column's top-K) takes ``cascade.person_yolo``'s place, and holds
+``rtdetr.backbone`` (ResNet-50-vd), ``rtdetr.encoder`` (the input
+projections, AIFI, CCFM), ``rtdetr.select`` (the decoder's input
+projections, anchors, top-300) and ``rtdetr.decoder`` (the decoder layers
+and heads).
+
 The counters of one call are the gating funnel: ``frames`` -> ``persons``
 (valid detections) and ``faces`` -> ``face_slots_used`` of ``face_slots``
 (top-F) -> ``matched_faces`` -> ``gated_persons`` -> ``pose_slots_used`` of
 ``pose_slots`` (top-G), with ``face_budget_saturated`` (1 where valid faces
-outnumbered the face slots) and the call's NMS (K1), packed attention (K2)
-and fused eval BatchNorm launches, ``k1_launches``, ``k2_launches`` and
-``bn_act_launches``.
+outnumbered the face slots) and the call's NMS (K1), packed attention (K2),
+fused eval BatchNorm and deformable attention launches, ``k1_launches``,
+``k2_launches``, ``bn_act_launches`` and ``msda_launches`` (0 where the
+path has no such kernel).
 
 The records of the most recent ``RING_CALLS`` calls are kept. :func:`spans`
 and :func:`counters` return those of the latest stretch of calls during
@@ -74,7 +83,8 @@ from prpe_tpu_torch.ops.kernels._build import launches
 # ten small masks each, a few MB of host memory at most
 RING_CALLS = 1024
 # kernel route in ``_build.launches`` -> the counter of its launches a call
-LAUNCH_COUNTERS = {"nms": "k1_launches", "mhsa": "k2_launches", "bn_act": "bn_act_launches"}
+LAUNCH_COUNTERS = {"nms": "k1_launches", "mhsa": "k2_launches", "bn_act": "bn_act_launches",
+                   "msda": "msda_launches"}
 
 
 def count_flops(fn: Callable, *args, **kwargs) -> Dict[str, float]:

@@ -17,12 +17,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from prpe_tpu_torch.nn.common import BatchNorm, ConvBN, PReLU, _BatchStatsNorm, init_weights
 from prpe_tpu_torch.nn.irnet import BasicBlockIR, IRNet
+from prpe_tpu_torch.nn.resnet import ConvNormLayer, ResNetVD
 from prpe_tpu_torch.nn.yolo import YOLO
 from prpe_tpu_torch.ops.kernels import bn_act as bn_act_mod
 from prpe_tpu_torch.ops.kernels.bn_act import bn_act, bn_act_plain, geometry
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
-ACTS = ("none", "silu", "prelu")
+ACTS = ("none", "silu", "prelu", "relu")
 LAYOUTS = ("nchw", "channels_last", "rows")
 C = 24
 
@@ -51,6 +52,8 @@ def parent_eval(bn, x, act=None):
     y = x * scale.to(x.dtype).view(shape) + bias.to(x.dtype).view(shape)
     if act == "silu":
         return F.silu(y)
+    if act == "relu":
+        return F.relu(y)
     if isinstance(act, PReLU):
         alpha = act.alpha.to(x.dtype).view(1, -1, *([1] * (x.dim() - 2)))
         return torch.where(y >= 0, y, alpha * y)
@@ -123,6 +126,12 @@ def _conv_bn(act, gen):
     return randomize(m, gen).eval()
 
 
+def _conv_norm_relu(gen):
+    m = ConvNormLayer(5, C, 3, 1, "relu")
+    init_weights(m, gen)
+    return randomize(m, gen).eval()
+
+
 def _ir_block(gen):
     m = BasicBlockIR(16, C, 2)
     init_weights(m, gen)
@@ -142,6 +151,8 @@ SITES = {
                      lambda m, x: parent_eval(m.bn, m.conv(x), "silu")),
     "conv_bn": (lambda g: _conv_bn(False, g), 5, lambda m, x: parent_eval(m.bn, m.conv(x))),
     "ir_block": (_ir_block, 16, _parent_ir_block),
+    # ResNet-50-vd's ConvNormLayer with its ReLU (RT-DETR's backbone)
+    "conv_norm_relu": (_conv_norm_relu, 5, lambda m, x: parent_eval(m.norm, m.conv(x), "relu")),
 }
 
 
@@ -163,18 +174,19 @@ def test_sites_match_the_parent(site, dtype, layout):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_whole_models_match_grad_enabled_eval(dtype):
     """IR-18 (input BatchNorm -> PReLU, every block, the output BatchNorm and
-    the 2-D affine-free one) and YOLOv11-n, each at a small size: the
-    inference-mode forward equals the grad-enabled eval forward, which
-    still runs the parent's expression."""
+    the 2-D affine-free one), YOLOv11-n and ResNet-50-vd (BatchNorm -> ReLU),
+    each at a small size: the inference-mode forward equals the
+    grad-enabled eval forward, which still runs the parent's expression."""
     gen = torch.Generator().manual_seed(5)
     irnet = IRNet(num_layers=18, input_size=32, embedding_size=16, dtype=DTYPES[dtype])
     yolo = YOLO(nc=2, dtype=DTYPES[dtype])
-    for m in (irnet, yolo):
+    resnet = ResNetVD(dtype=DTYPES[dtype])
+    for m in (irnet, yolo, resnet):
         init_weights(m, gen)
         randomize(m, gen).eval()
     faces = torch.rand(2, 32, 32, 3, generator=gen)
     frames = torch.rand(1, 64, 64, 3, generator=gen)
-    for model, x in ((irnet, faces), (yolo, frames)):
+    for model, x in ((irnet, faces), (yolo, frames), (resnet, frames)):
         want = model(x)
         with torch.inference_mode():
             got = model(x)
@@ -377,7 +389,9 @@ def test_act_and_alpha_must_agree():
     with pytest.raises(ValueError):
         bn_act(x, s, s, s, "silu", 1)
     with pytest.raises(ValueError):
-        bn_act(x, s, s, None, "relu", 1)
+        bn_act(x, s, s, s, "relu", 1)
+    with pytest.raises(ValueError):
+        bn_act(x, s, s, None, "gelu", 1)
 
 
 def test_export_keeps_the_op_as_one_node():

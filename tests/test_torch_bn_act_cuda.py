@@ -1,10 +1,11 @@
 """The fused eval BatchNorm kernel (``csrc/bn_act.cu``) against its plain
 version on the card, bit for bit: every finite bf16 value through each
-activation, fp32 values over many magnitudes, every layout route of the
-kernel (16-byte vectors in one channel, across channels, one element at a
-time), and every BatchNorm of the benchmark cell's models at their real
-shapes and layouts (both YOLOv11-n at 128 frames of 640^2, IR-50 at 256
-faces), in bf16 and fp32. The plain version on the card is ATen's own
+activation (none, SiLU, PReLU, ReLU), fp32 values over many magnitudes,
+every layout route of the kernel (16-byte vectors in one channel, across
+channels, one element at a time), and every BatchNorm of the benchmark
+cells' models at their real shapes and layouts (both YOLOv11-n at 128
+frames of 640^2, IR-50 at 256 faces, RT-DETR's ResNet-50-vd at 128 frames
+of 640^2), in bf16 and fp32. The plain version on the card is ATen's own
 kernels, which the port ran before the fused op. Needs the card: every test
 is marked ``cuda`` and skips where no GPU is present. On the card, without
 JAX (this file imports torch and the port only):
@@ -19,13 +20,14 @@ import torch
 
 from prpe_tpu_torch.nn.common import BatchNorm, PReLU, init_weights
 from prpe_tpu_torch.nn.irnet import IRNet
+from prpe_tpu_torch.nn.resnet import ResNetVD
 from prpe_tpu_torch.nn.yolo import YOLO
 from prpe_tpu_torch.ops.kernels import launches
 from prpe_tpu_torch.ops.kernels.bn_act import bn_act, bn_act_plain
 
 pytestmark = pytest.mark.cuda
 
-ACTS = ("none", "silu", "prelu")
+ACTS = ("none", "silu", "prelu", "relu")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
@@ -155,20 +157,23 @@ def _randomize(module, gen):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("model", ["yolo", "irnet"])
+@pytest.mark.parametrize("model", ["yolo", "irnet", "resnet50vd"])
 def test_every_batchnorm_of_the_cell(cuda, model, dtype):
-    """Each BatchNorm of a YOLOv11-n at 128 frames of 640^2 or of IR-50 at
-    256 faces of 112^2, on the activations it gets there (cuDNN's layouts
+    """Each BatchNorm of a YOLOv11-n at 128 frames of 640^2, of IR-50 at 256
+    faces of 112^2 or of ResNet-50-vd at 128 frames of 640^2 (55, 35 of
+    them with the ReLU), on the activations it gets there (cuDNN's layouts
     included): the fused op's output equals the plain version on the same
     input, and every one launched the kernel."""
     dt = DTYPES[dtype]
     gen = torch.Generator(device=cuda).manual_seed(4)
     with torch.device(cuda):
-        net = YOLO(nc=1, dtype=dt) if model == "yolo" else IRNet(num_layers=50, dtype=dt)
+        net = {"yolo": lambda: YOLO(nc=1, dtype=dt),
+               "irnet": lambda: IRNet(num_layers=50, dtype=dt),
+               "resnet50vd": lambda: ResNetVD(dtype=dt)}[model]()
     init_weights(net, gen)
     _randomize(net, gen)
     net.eval()
-    shape = (128, 640, 640, 3) if model == "yolo" else (256, 112, 112, 3)
+    shape = (256, 112, 112, 3) if model == "irnet" else (128, 640, 640, 3)
     x = torch.rand(shape, generator=gen, device=cuda)
     sites = []
 
@@ -193,5 +198,7 @@ def test_every_batchnorm_of_the_cell(cuda, model, dtype):
             h.remove()
     bad = [s for s in sites if not s[3]]
     assert not bad, bad
-    assert len(sites) == len(handles) == (81 if model == "yolo" else 78)
+    assert len(sites) == len(handles) == {"yolo": 81, "irnet": 78, "resnet50vd": 55}[model]
+    if model == "resnet50vd":
+        assert sum(s[2] == "relu" for s in sites) == 35
     assert launches["bn_act"] - before == len(sites)

@@ -2,7 +2,8 @@
 sizes: each prints the JSON lines of the repository script it follows,
 with its metric names and keys; the profilers aggregate a trace, a CPU one
 and a hand-made one with the card's event kinds; ``reference_nets`` holds
-the reference transcriptions of ``tests/test_porting_yolo_irnet.py``.
+the reference transcriptions of ``tests/test_porting_yolo_irnet.py``, and
+the benchmark's frozen copy of ``reference_rtdetr`` equals it.
 """
 
 import json
@@ -13,7 +14,7 @@ import torch
 
 from prpe_tpu_torch.tools import (
     bench_attention, bench_cascade, bench_io, bench_train, bench_vit_ln, dump_trace_ops,
-    profile_cascade, profile_train, reference_nets,
+    profile_cascade, profile_train, reference_nets, reference_rtdetr,
 )
 
 
@@ -238,6 +239,31 @@ def test_reference_nets_match_the_test_transcriptions(make):
         w, g = want(x), got(x)
     for a, b in zip(w, g):
         assert torch.equal(a, b)
+
+
+def test_benchmark_copy_of_reference_rtdetr_matches():
+    """``benchmark/reference/rtdetr.py`` against ``tools/reference_rtdetr.py``
+    on one state dict at tiny widths (the backbone at its published ones):
+    the same keys, and the same logits, boxes and anchors bit for bit."""
+    from benchmark.reference import rtdetr as frozen
+
+    kw = dict(num_classes=3, dim=32, num_queries=16, heads=2, ffn=64, levels=3, points=2,
+              num_layers=2)
+    torch.manual_seed(0)
+    want = reference_rtdetr.RTDETR(**kw).eval()
+    with torch.no_grad():
+        for m in want.modules():
+            if isinstance(m, reference_rtdetr.Attention):
+                torch.nn.init.normal_(m.in_proj_weight, 0.0, 0.2)
+                torch.nn.init.normal_(m.in_proj_bias, 0.0, 0.1)
+    got = frozen.RTDETR(**kw).eval()
+    sd = want.state_dict()
+    assert list(got.state_dict()) == list(sd)
+    got.load_state_dict(sd)
+    x = torch.rand(2, 3, 64, 64)
+    with torch.no_grad():
+        for a, b in zip(reference_rtdetr.detect(want, x), frozen.detect(got, x)):
+            assert torch.equal(a, b)
 
 
 def test_pose_gap_grad_check_on_the_cpu(monkeypatch, capsys):

@@ -142,7 +142,7 @@ def test_counters_are_the_results_own_masks(cascade, case):
         "gated_persons": int(res.person_gated.sum()),
         "pose_slots": POSE_CAPACITY, "pose_slots_used": int(res.pose_valid.sum()),
         "face_budget_saturated": int(res.face_budget_saturated),
-        "k1_launches": 0, "k2_launches": 0, "bn_act_launches": 0,
+        "k1_launches": 0, "k2_launches": 0, "bn_act_launches": 0, "msda_launches": 0,
     }
     assert got["matched_faces"] > 0 and got["pose_slots_used"] > 0
 
