@@ -275,10 +275,10 @@ def watch_batchnorms() -> None:
     if getattr(forward, "counted", False):
         return
 
-    def counted(self, x, act=None):
+    def counted(self, x, act=None, residual=None):
         if not (self.training or torch.is_grad_enabled()) and x.numel():
             BN_EVALS[x.device.type] = BN_EVALS.get(x.device.type, 0) + 1
-        return forward(self, x, act)
+        return forward(self, x, act, residual)
 
     counted.counted = True
     BatchNorm.forward = counted
@@ -308,6 +308,18 @@ def batchnorms(*models) -> int:
     from prpe_tpu_torch.nn.common import BatchNorm
 
     return sum(isinstance(m, BatchNorm) for model in models for m in model.modules())
+
+
+def residual_sites(*models) -> int:
+    """The blocks of ``models`` whose last BatchNorm adds a residual
+    (ResNet-50-vd's bottlenecks, RT-DETR's RepVGG blocks): the fused
+    launches with a residual (``bn_act_residual``) of one no-grad eval
+    forward of each."""
+    from prpe_tpu_torch.nn.resnet import BottleNeckD
+    from prpe_tpu_torch.nn.rtdetr import RepVggBlock
+
+    return sum(isinstance(m, (BottleNeckD, RepVggBlock)) for model in models
+               for m in model.modules())
 
 
 # ---------------------------------------------------------------- kernels ---
@@ -358,10 +370,13 @@ def phase_nms(gen, device, b: int, k: int, thr: float = 0.65):
 
 # the fused eval BatchNorm's rows: the cells' largest sites (YOLO's first
 # ConvBN, IR-50's input BatchNorm -> PReLU, its last block, ResNet-50-vd's
-# third stem conv -> ReLU) in the channels-last layout cuDNN gives them,
-# NCHW sites (IR-50's 14x14 planes come so), fp32 once
+# third stem conv -> ReLU and its first stage's branch2c with the shortcut
+# added before the ReLU) in the channels-last layout cuDNN gives them,
+# NCHW sites (IR-50's 14x14 planes come so), fp32 once; a fifth item True
+# adds a residual
 BN_ACT_ROWS = ((torch.bfloat16, (128, 16, 320, 320), "silu", "channels_last"),
                (torch.bfloat16, (128, 64, 320, 320), "relu", "channels_last"),
+               (torch.bfloat16, (128, 256, 160, 160), "relu", "channels_last", True),
                (torch.bfloat16, (256, 64, 112, 112), "prelu", "channels_last"),
                (torch.bfloat16, (256, 512, 7, 7), "none", "channels_last"),
                (torch.bfloat16, (128, 16, 320, 320), "silu", "nchw"),
@@ -369,51 +384,57 @@ BN_ACT_ROWS = ((torch.bfloat16, (128, 16, 320, 320), "silu", "channels_last"),
                (torch.float32, (128, 16, 320, 320), "silu", "channels_last"))
 
 
-def parent_bn_eval(bn, x, act):
-    """Eval BatchNorm and its activation as the port ran them before the
-    fused op: the constants folded on every call, then separate ops."""
+def parent_bn_eval(bn, x, act, residual=None):
+    """Eval BatchNorm, a residual's add and the activation as the port ran
+    them before the fused op: the constants folded on every call, then
+    separate ops."""
     import torch.nn.functional as F
 
     scale = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
     bias = -bn.running_mean.float() * scale + bn.bias.float()
     y = x * scale.to(x.dtype).view(1, -1, 1, 1) + bias.to(x.dtype).view(1, -1, 1, 1)
+    if residual is not None:
+        y = y + residual
     if act in ("silu", "relu"):
         return getattr(F, act)(y)
     return y if act is None else act(y)
 
 
-def phase_bn_act(gen, device, dtype, shape, act: str, layout: str):
+def phase_bn_act(gen, device, dtype, shape, act: str, layout: str, residual: bool = False):
     """The fused eval BatchNorm kernel (``csrc/bn_act.cu``) at one of the
-    cell's shapes: bit-equal to its plain version, device ms against one
-    read and one write of the tensor, and host us a call of the op, of its
-    launch alone, of a warm ``BatchNorm`` forward (cached constants, one
-    op) and of the parent's eval expression it replaces (ten ops and the
-    activation's)."""
+    cell's shapes, with a residual operand where ``residual``: bit-equal to
+    its plain version, device ms against one read and one write of the
+    tensor (and one read of the residual), and host us a call of the op, of
+    its launch alone, of a warm ``BatchNorm`` forward (cached constants, one
+    op) and of the parent's eval expression it replaces (ten ops, the
+    residual's add and the activation's)."""
     from prpe_tpu_torch.nn.common import BatchNorm, PReLU
     from prpe_tpu_torch.ops.kernels import launches
     from prpe_tpu_torch.ops.kernels.bn_act import _launch, bn_act, bn_act_plain
 
     c = shape[1]
-    x = torch.randn(shape, generator=gen, device=device).to(dtype)
-    if layout == "channels_last":
-        x = x.contiguous(memory_format=torch.channels_last)
+    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
+    x = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(memory_format=fmt)
+    r = (torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(memory_format=fmt)
+         if residual else None)
     scale, bias, alpha = (torch.rand(c, generator=gen, device=device).to(dtype) for _ in range(3))
     alpha = alpha if act == "prelu" else None
-    before = launches["bn_act"]
-    y = bn_act(x, scale, bias, alpha, act, 1)
+    before = launches["bn_act"], launches["bn_act_residual"]
+    y = bn_act(x, scale, bias, alpha, act, 1, r)
     torch.cuda.synchronize()
-    if launches["bn_act"] != before + 1:
+    if (launches["bn_act"], launches["bn_act_residual"]) != (before[0] + 1, before[1] + residual):
         fail("bn_act did not count its launch")
-    want = bn_act_plain(x, scale, bias, alpha, act, 1)
+    want = bn_act_plain(x, scale, bias, alpha, act, 1, r)
     if not torch.equal(y, want) or y.stride() != want.stride():
-        fail(f"bn_act differs from its plain version at {shape} {layout} {act}")
-    ms = time_ms(lambda: bn_act(x, scale, bias, alpha, act, 1))
-    plain_ms = time_ms(lambda: bn_act_plain(x, scale, bias, alpha, act, 1), runs=5, warmup=1)
-    nbytes = 2 * x.numel() * x.element_size()
+        fail(f"bn_act differs from its plain version at {shape} {layout} {act} "
+             f"residual {residual}")
+    ms = time_ms(lambda: bn_act(x, scale, bias, alpha, act, 1, r))
+    plain_ms = time_ms(lambda: bn_act_plain(x, scale, bias, alpha, act, 1, r), runs=5, warmup=1)
+    nbytes = (3 if residual else 2) * x.numel() * x.element_size()
     bnd, by = bound_ms(nbytes, 0.0, PEAK_FLOPS[torch.float32])
     # host us a call: a small tensor of the same channels, so the card keeps up
-    fmt = torch.channels_last if layout == "channels_last" else torch.contiguous_format
     small = x[:1, :, :4, :4].contiguous(memory_format=fmt)
+    small_r = r[:1, :, :4, :4].contiguous(memory_format=fmt) if residual else None
     bn = BatchNorm(c, 1e-3).to(device).eval()
     with torch.no_grad():
         bn.weight.uniform_(0.5, 1.5, generator=gen)
@@ -426,13 +447,16 @@ def phase_bn_act(gen, device, dtype, shape, act: str, layout: str):
         with torch.no_grad():
             module_act.alpha.fill_(0.25)
     with torch.inference_mode():
-        host = {"host_us": host_us(lambda: bn_act(small, scale, bias, alpha, act, 1)),
+        host = {"host_us": host_us(lambda: bn_act(small, scale, bias, alpha, act, 1, small_r)),
                 # the launch alone, without the custom op's dispatch
-                "host_us_launch": host_us(lambda: _launch(small, scale, bias, alpha, act, 1)),
-                "host_us_module": host_us(lambda: bn(small, module_act)),
-                "host_us_parent": host_us(lambda: parent_bn_eval(bn, small, module_act))}
+                "host_us_launch": host_us(
+                    lambda: _launch(small, scale, bias, alpha, act, 1, small_r)),
+                "host_us_module": host_us(lambda: bn(small, module_act, small_r)),
+                "host_us_parent": host_us(
+                    lambda: parent_bn_eval(bn, small, module_act, small_r))}
     row = dict(name="bn_act", shape=list(shape), dtype=str(dtype).replace("torch.", ""),
-               act=act, layout=layout, max_abs_err=float((y.float() - want.float()).abs().max()),
+               act=act, layout=layout, residual=residual,
+               max_abs_err=float((y.float() - want.float()).abs().max()),
                ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by, library_ms=None,
                tb_per_s=nbytes / ms / 1e9, **host)
     emit("kernel", **row)
@@ -911,7 +935,8 @@ def phase_cascade_rtdetr(device, batch: int = 128, iters: int = 8, size: int = 6
     cell ``cascade_rtdetr.b128`` (bf16, random seeded weights, unless a
     smaller ``pose`` / ``rtdetr`` / ``size`` is given): one call with every
     counter at zero (one deformable-attention launch a decoder layer, one
-    ``bn_act`` a BatchNorm, K1 on the faces alone, K2 once a ViT block),
+    ``bn_act`` a BatchNorm, 28 of them ``bn_act_residual``, K1 on the
+    faces alone, K2 once a ViT block),
     then images/s and peak memory at ``batch`` and a profile of one call.
     Returns the launches of that call."""
     from prpe_tpu_torch.core.config import (CascadeConfig, DetectionConfig, PoseConfig,
@@ -937,7 +962,8 @@ def phase_cascade_rtdetr(device, batch: int = 128, iters: int = 8, size: int = 6
     torch.cuda.synchronize()
     counts = dict(launches)
     want = expected_launches("pallas_packed", pose.vit_layers, nms=1)
-    want.update(bn_act=batchnorms(model), msda=rtdetr.num_decoder_layers)
+    want.update(bn_act=batchnorms(model), bn_act_residual=residual_sites(model),
+                msda=rtdetr.num_decoder_layers)
     if counts != want:
         fail(f"the RT-DETR cascade launched {counts}, expected {want}")
     check_result(res, batch, cfg.max_persons, cfg.max_faces, batch, pose.num_keypoints)
@@ -1808,8 +1834,15 @@ def count_on_cpu() -> None:
     counting("prpe::mhsa_packed", attention.mhsa_packed_plain, "mhsa")
     counting("prpe::mhsa_bhtd", attention.mhsa_bhtd_plain, "mhsa_bhtd")
     counting("prpe::nms_keep", nms.nms_keep_plain, "nms")
-    counting("prpe::bn_act", bn_act.bn_act_plain, "bn_act")
     counting("prpe::ms_deform_attn", ms_deform_attn.ms_deform_attn_plain, "msda")
+
+    def bn_act_counting(*args):
+        _build.launches["bn_act"] += 1
+        if len(args) > 6 and args[6] is not None:  # a residual: that route's counter too
+            _build.launches["bn_act_residual"] += 1
+        return bn_act.bn_act_plain(*args)
+
+    torch.library.register_kernel("prpe::bn_act", "cpu", bn_act_counting)
 
 
 def _rank_device(device_str: str) -> torch.device:
@@ -3276,7 +3309,9 @@ def main() -> int:
     kernels.append(dict(name="bn_act", route="cuda", source=src + "bn_act.cu", replaces=None,
                         launches=counts["pallas_packed"]["bn_act"],
                         launches_f32=counts_f32["pallas_packed"]["bn_act"],
-                        launches_rtdetr=rtdetr_counts["bn_act"], rows=bn_rows))
+                        launches_rtdetr=rtdetr_counts["bn_act"],
+                        launches_rtdetr_residual=rtdetr_counts["bn_act_residual"],
+                        rows=bn_rows))
     kernels.append(dict(name="ms_deform_attn", route="cuda", source=src + "ms_deform_attn.cu",
                         replaces=None, launches=rtdetr_counts["msda"],
                         **row(msda_rows[0]), **suffixed(msda_rows[1], "_f32")))

@@ -1,5 +1,8 @@
 // Eval BatchNorm and the activation right after it, in one pass:
 //   y = act(round(round(x * scale) + bias))
+// or, with a residual operand r of x's layout (a bottleneck's shortcut, a
+// RepVGG block's other branch), the add between them too:
+//   y = act(round(round(round(x * scale) + bias) + r))
 // over a tensor that lies in memory as (outer, C, inner): NCHW is (N, C, H*W),
 // channels-last (N, H*W, C) with inner 1, and (N, C) has inner 1. scale and
 // bias are the per-channel constants that eval BatchNorm folds from its
@@ -14,13 +17,15 @@
 // launches on the constants, and the activation as a pass of its own.
 //
 // Exactness: each step rounds to the activation dtype where ATen's separate
-// kernels store it: after the product, after the sum and after the
-// activation. The product and the sum are __fmul_rn / __fadd_rn, which nvcc
-// never contracts into an FMA. SiLU is ATen's x / (1 + exp(-x)) in fp32
-// (expf, IEEE division); PReLU is where(x >= 0, x, round(alpha * x)); ReLU
-// is ATen's clamp_min(x, 0): NaN kept, else fmaxf(x, 0) in fp32. So the
-// output equals the plain version (ops/kernels/bn_act.py::bn_act_plain) bit
-// for bit.
+// kernels store it: after the product, after the sum, after the residual's
+// add and after the activation. The product and the sums are __fmul_rn /
+// __fadd_rn, which nvcc never contracts into an FMA; ATen's add of two bf16
+// tensors is the fp32 sum of the stored values, rounded once, and fp32
+// addition is commutative, so either side may hold the residual. SiLU is
+// ATen's x / (1 + exp(-x)) in fp32 (expf, IEEE division); PReLU is
+// where(x >= 0, x, round(alpha * x)); ReLU is ATen's clamp_min(x, 0): NaN
+// kept, else fmaxf(x, 0) in fp32. So the output equals the plain version
+// (ops/kernels/bn_act.py::bn_act_plain) bit for bit.
 //
 // What bounds it on the H100: bytes. One read and one write of the tensor
 // (4 bytes an element in bf16) against about 30 fp32 instructions an
@@ -44,6 +49,14 @@
 //     holds its routes below the bytes' bound).
 //   - Channel indices come from multiply-high divisions by divisors
 //     prepared on the host, not from integer division.
+//   - The residual is a kernel of its own (bn_act_residual_kernel, the
+//     same body with the add compiled in), so the routes without one keep
+//     their code. Its vector lies at x's offset (same sizes and strides,
+//     checked on the host) and costs one more 16-byte load. Reading x and
+//     the residual and writing y moves three tensors' bytes where the
+//     separate BatchNorm, add and activation moved seven. A streaming load
+//     of the residual (__ldcs) measured within 2 % of a plain one either
+//     way, and slower with x and y streamed too, so the loads are plain.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,10 +114,11 @@ __device__ __forceinline__ float stored(float v) {
   return to_f(from_f<T>(v));
 }
 
-template <typename T, int kAct>
-__device__ __forceinline__ T apply(T x, float s, float b, float a) {
+template <typename T, int kAct, bool kRes>
+__device__ __forceinline__ T apply(T x, float s, float b, float a, T r) {
   float v = stored<T>(__fmul_rn(to_f(x), s));
   v = stored<T>(__fadd_rn(v, b));
+  if (kRes) v = stored<T>(__fadd_rn(v, to_f(r)));
   if (kAct == kSilu) v = v / (1.0f + expf(-v));
   if (kAct == kPrelu && !(v >= 0.0f)) v = __fmul_rn(a, v);
   if (kAct == kRelu && v == v) v = fmaxf(v, 0.0f);
@@ -116,6 +130,7 @@ struct Args {
   const void* scale;
   const void* bias;
   const void* alpha;
+  const void* residual;  // bn_act_residual_kernel only
   void* y;
   unsigned items;     // vectors (kElement: elements) of the tensor
   int channels;
@@ -134,8 +149,8 @@ __device__ __forceinline__ void load_group(const T* scale, const T* bias, const 
   a = prelu ? reinterpret_cast<const uint4*>(alpha)[g] : s;
 }
 
-template <typename T, int kAct, int kMode>
-__global__ void __launch_bounds__(kThreads) bn_act_kernel(Args a) {
+template <typename T, int kAct, int kMode, bool kRes>
+__device__ __forceinline__ void bn_act_body(const Args& a) {
   constexpr int kVec = kMode == kElement ? 1 : 16 / (int)sizeof(T);
   using Item = typename std::conditional<kMode == kElement, T, uint4>::type;
   const T* scale = static_cast<const T*>(a.scale);
@@ -158,12 +173,16 @@ __global__ void __launch_bounds__(kThreads) bn_act_kernel(Args a) {
   }
 
   const Item* __restrict__ x = static_cast<const Item*>(a.x);
+  const Item* __restrict__ r = static_cast<const Item*>(a.residual);
   Item* __restrict__ y = static_cast<Item*>(a.y);
   const unsigned step = gridDim.x * kThreads;
   for (unsigned i = blockIdx.x * kThreads + threadIdx.x; i < a.items; i += step) {
     const Item in = x[i];
+    Item res{};
+    if constexpr (kRes) res = r[i];
     Item out;
     const T* e = reinterpret_cast<const T*>(&in);
+    const T* rv = reinterpret_cast<const T*>(&res);
     T* o = reinterpret_cast<T*>(&out);
     if constexpr (kMode == kChannelRun || kMode == kChannelFixed) {
       uint4 sr = fs, br = fb, ar = fa;
@@ -176,7 +195,7 @@ __global__ void __launch_bounds__(kThreads) bn_act_kernel(Args a) {
       const T* av = reinterpret_cast<const T*>(&ar);
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
-        o[j] = apply<T, kAct>(e[j], to_f(sv[j]), to_f(bv[j]), to_f(av[j]));
+        o[j] = apply<T, kAct, kRes>(e[j], to_f(sv[j]), to_f(bv[j]), to_f(av[j]), rv[j]);
       }
     } else if constexpr (kMode == kStraddle) {
       // the vector's first element is r0 into channel c0's plane; from
@@ -194,7 +213,8 @@ __global__ void __launch_bounds__(kThreads) bn_act_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
         const bool next = j >= split;
-        o[j] = apply<T, kAct>(e[j], next ? s1 : s0, next ? b1 : b0, next ? a1 : a0);
+        o[j] = apply<T, kAct, kRes>(e[j], next ? s1 : s0, next ? b1 : b0, next ? a1 : a0,
+                                    rv[j]);
       }
     } else {
       // kOneChannel (i counts vectors) and kElement (i counts elements)
@@ -204,17 +224,34 @@ __global__ void __launch_bounds__(kThreads) bn_act_kernel(Args a) {
       const float b = to_f(t_bias[c]);
       const float al = kAct == kPrelu ? to_f(t_alpha[c]) : 0.0f;
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) o[j] = apply<T, kAct>(e[j], s, b, al);
+      for (int j = 0; j < kVec; ++j) o[j] = apply<T, kAct, kRes>(e[j], s, b, al, rv[j]);
     }
     y[i] = out;
   }
+}
+
+template <typename T, int kAct, int kMode>
+__global__ void __launch_bounds__(kThreads) bn_act_kernel(Args a) {
+  bn_act_body<T, kAct, kMode, false>(a);
+}
+
+template <typename T, int kAct, int kMode>
+__global__ void __launch_bounds__(kThreads) bn_act_residual_kernel(Args a) {
+  bn_act_body<T, kAct, kMode, true>(a);
+}
+
+// the kernel of one route, with the residual's add or without
+template <typename T, int kAct, int kMode, bool kRes>
+auto kernel_of() -> void (*)(Args) {
+  if constexpr (kRes) return bn_act_residual_kernel<T, kAct, kMode>;
+  else return bn_act_kernel<T, kAct, kMode>;
 }
 
 // Blocks of one instantiation that fit on device `device` at once with
 // `smem` bytes of dynamic shared memory each. The occupancy query costs more
 // host time than the launch, so its answer is kept for each (device, smem)
 // pair the instantiation has seen; the cell's 240 sites have a few dozen.
-template <typename T, int kAct, int kMode>
+template <typename T, int kAct, int kMode, bool kRes>
 cudaError_t resident_blocks(int device, size_t smem, unsigned* blocks) {
   static std::mutex lock;
   static std::unordered_map<uint64_t, unsigned> known;
@@ -228,46 +265,56 @@ cudaError_t resident_blocks(int device, size_t smem, unsigned* blocks) {
   int sms = 0, per_sm = 0;
   cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bn_act_kernel<T, kAct, kMode>,
-                                                        kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel_of<T, kAct, kMode, kRes>(), kThreads, smem);
   if (err != cudaSuccess) return err;
   *blocks = known[key] = (unsigned)(per_sm > 0 ? per_sm : 1) * (unsigned)sms;
   return cudaSuccess;
 }
 
-template <typename T, int kAct, int kMode>
+template <typename T, int kAct, int kMode, bool kRes>
 cudaError_t run(const Args& a, int device, cudaStream_t stream) {
   const size_t smem =
       kMode == kChannelFixed ? 0 : (size_t)(kAct == kPrelu ? 3 : 2) * a.channels * sizeof(T);
   unsigned resident = 0;
-  const cudaError_t err = resident_blocks<T, kAct, kMode>(device, smem, &resident);
+  const cudaError_t err = resident_blocks<T, kAct, kMode, kRes>(device, smem, &resident);
   if (err != cudaSuccess) return err;
   if (a.items == 0) return cudaSuccess;
   const unsigned wanted = (a.items + kThreads - 1) / kThreads;
   const unsigned blocks = wanted < resident ? wanted : resident;
-  bn_act_kernel<T, kAct, kMode><<<blocks, kThreads, smem, stream>>>(a);
+  if constexpr (kRes)
+    bn_act_residual_kernel<T, kAct, kMode><<<blocks, kThreads, smem, stream>>>(a);
+  else
+    bn_act_kernel<T, kAct, kMode><<<blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int kAct>
+template <typename T, int kAct, bool kRes>
 cudaError_t by_mode(int mode, const Args& a, int device, cudaStream_t stream) {
   switch (mode) {
     case kOneChannel:
-      return run<T, kAct, kOneChannel>(a, device, stream);
+      return run<T, kAct, kOneChannel, kRes>(a, device, stream);
     case kStraddle:
-      return run<T, kAct, kStraddle>(a, device, stream);
+      return run<T, kAct, kStraddle, kRes>(a, device, stream);
     case kChannelRun:
-      return run<T, kAct, kChannelRun>(a, device, stream);
+      return run<T, kAct, kChannelRun, kRes>(a, device, stream);
     case kChannelFixed:
-      return run<T, kAct, kChannelFixed>(a, device, stream);
+      return run<T, kAct, kChannelFixed, kRes>(a, device, stream);
     default:
-      return run<T, kAct, kElement>(a, device, stream);
+      return run<T, kAct, kElement, kRes>(a, device, stream);
   }
 }
 
+template <typename T, int kAct>
+cudaError_t by_residual(int mode, const Args& a, int device, cudaStream_t stream) {
+  return a.residual ? by_mode<T, kAct, true>(mode, a, device, stream)
+                    : by_mode<T, kAct, false>(mode, a, device, stream);
+}
+
 template <typename T>
-int launch(const void* x, const void* scale, const void* bias, const void* alpha, void* y,
-           int outer, int channels, int inner, int act, int device, void* stream) {
+int launch(const void* x, const void* scale, const void* bias, const void* alpha,
+           const void* residual, void* y, int outer, int channels, int inner, int act,
+           int device, void* stream) {
   if (outer <= 0 || channels <= 0 || channels > kMaxChannels || inner <= 0 || act < kNone ||
       act > kRelu || (act == kPrelu && alpha == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -275,8 +322,8 @@ int launch(const void* x, const void* scale, const void* bias, const void* alpha
   const long long n = (long long)outer * channels * inner;
   if (n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   const auto on16 = [](const void* p) { return (uintptr_t)p % 16 == 0; };
-  const bool aligned = on16(x) && on16(y);
-  Args a{x, scale, bias, alpha, y, 0, channels, (unsigned)inner, {}, {}};
+  const bool aligned = on16(x) && on16(y) && (residual == nullptr || on16(residual));
+  Args a{x, scale, bias, alpha, residual, y, 0, channels, (unsigned)inner, {}, {}};
   int mode;
   long long items = n / kVec;
   if (aligned && inner % kVec == 0) {
@@ -303,26 +350,29 @@ int launch(const void* x, const void* scale, const void* bias, const void* alpha
   const cudaStream_t s = (cudaStream_t)stream;
   switch (act) {
     case kSilu:
-      return (int)by_mode<T, kSilu>(mode, a, device, s);
+      return (int)by_residual<T, kSilu>(mode, a, device, s);
     case kPrelu:
-      return (int)by_mode<T, kPrelu>(mode, a, device, s);
+      return (int)by_residual<T, kPrelu>(mode, a, device, s);
     case kRelu:
-      return (int)by_mode<T, kRelu>(mode, a, device, s);
+      return (int)by_residual<T, kRelu>(mode, a, device, s);
     default:
-      return (int)by_mode<T, kNone>(mode, a, device, s);
+      return (int)by_residual<T, kNone>(mode, a, device, s);
   }
 }
 
 }  // namespace
 
+// residual: null, or a tensor of x's dtype, sizes and strides
 extern "C" int prpe_bn_act_f32(const void* x, const void* scale, const void* bias,
-                               const void* alpha, void* y, int outer, int channels, int inner,
-                               int act, int device, void* stream) {
-  return launch<float>(x, scale, bias, alpha, y, outer, channels, inner, act, device, stream);
+                               const void* alpha, const void* residual, void* y, int outer,
+                               int channels, int inner, int act, int device, void* stream) {
+  return launch<float>(x, scale, bias, alpha, residual, y, outer, channels, inner, act, device,
+                       stream);
 }
 
 extern "C" int prpe_bn_act_bf16(const void* x, const void* scale, const void* bias,
-                                const void* alpha, void* y, int outer, int channels, int inner,
-                                int act, int device, void* stream) {
-  return launch<bf16>(x, scale, bias, alpha, y, outer, channels, inner, act, device, stream);
+                                const void* alpha, const void* residual, void* y, int outer,
+                                int channels, int inner, int act, int device, void* stream) {
+  return launch<bf16>(x, scale, bias, alpha, residual, y, outer, channels, inner, act, device,
+                      stream);
 }

@@ -186,6 +186,9 @@ class BatchNorm(nn.Module):
 
     ``act`` is the activation that follows: None, ``"silu"`` (``F.silu``),
     ``"relu"`` (``F.relu``) or a ``PReLU`` over the same channels.
+    ``residual``, where given, is added between the normalisation and
+    ``act`` (a residual block's shortcut), in the same op where no gradient
+    is recorded; it has ``x``'s dtype, sizes and strides.
     """
 
     def __init__(self, channels: int, eps: float, affine: bool = True, dim: int = 1,
@@ -216,7 +219,8 @@ class BatchNorm(nn.Module):
             bias = bias + self.bias.float()
         return scale.to(dtype), bias.to(dtype)
 
-    def forward(self, x: torch.Tensor, act: Union[None, str, "PReLU"] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: Union[None, str, "PReLU"] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.training:
             y, mean, var = _BatchStatsNorm.apply(x, self.weight, self.bias, self.dim, self.eps,
                                                  self.sync_group)
@@ -225,6 +229,8 @@ class BatchNorm(nn.Module):
                     m = self.momentum
                     self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                     self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if residual is not None:
+                y = y + residual
             if act == "silu":
                 return F.silu(y)
             if act == "relu":
@@ -236,10 +242,11 @@ class BatchNorm(nn.Module):
             # the fused op's plain version, which records the gradient
             scale, bias = self.folded(x.dtype)
             alpha = act.alpha.to(x.dtype) if prelu else None
-            return bn_act_plain(x, scale, bias, alpha, kind, self.dim)
+            return bn_act_plain(x, scale, bias, alpha, kind, self.dim, residual)
         sources = (self.running_mean, self.running_var, self.weight, self.bias)
         scale, bias = self._folded.get(sources, x.dtype, lambda: self.folded(x.dtype))
-        return bn_act(x, scale, bias, act.alpha_in(x.dtype) if prelu else None, kind, self.dim)
+        return bn_act(x, scale, bias, act.alpha_in(x.dtype) if prelu else None, kind, self.dim,
+                      residual)
 
 
 class PReLU(nn.Module):

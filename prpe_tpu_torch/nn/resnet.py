@@ -12,7 +12,8 @@ backbone/presnet.py``), which the JAX package does not have. Its module
 names are the published ones (``conv1.conv1_1.conv``, ``res_layers.1.
 blocks.0.short.conv.norm`` ...). Every BatchNorm is eval-only (the
 published one is frozen) and runs with the ReLU after it as one
-``prpe::bn_act`` where no gradient is recorded.
+``prpe::bn_act`` where no gradient is recorded; a bottleneck's last one
+adds the shortcut in the same op.
 """
 
 from __future__ import annotations
@@ -127,6 +128,11 @@ class ConvNormLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(self.conv(x), self.act)
 
+    def add_act(self, x: torch.Tensor, residual: torch.Tensor, act: str) -> torch.Tensor:
+        """``act(norm(conv x) + residual)``: the BatchNorm, the add and
+        ``act`` one op where no gradient is recorded."""
+        return self.norm(self.conv(x), act, residual)
+
 
 class ShortcutD(nn.Module):
     """Variant d's shortcut of a strided block: 2x2 average pool
@@ -142,7 +148,8 @@ class ShortcutD(nn.Module):
 
 class BottleNeckD(nn.Module):
     """1x1 -> 3x3 carrying the stride -> 1x1 (4x width), each with its
-    BatchNorm, ReLU after the first two; ``relu(main + shortcut)``."""
+    BatchNorm, ReLU after the first two; ``relu(main + shortcut)``, the
+    last BatchNorm, the add and the ReLU in one op."""
 
     def __init__(self, cin: int, width: int, stride: int, shortcut: bool):
         super().__init__()
@@ -155,8 +162,8 @@ class BottleNeckD(nn.Module):
                           else ConvNormLayer(cin, width * 4, 1, stride))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.branch2c(self.branch2b(self.branch2a(x)))
-        return F.relu(out + (x if self.shortcut else self.short(x)))
+        short = x if self.shortcut else self.short(x)
+        return self.branch2c.add_act(self.branch2b(self.branch2a(x)), short, "relu")
 
 
 class Blocks(nn.Module):

@@ -147,7 +147,8 @@ class TransformerEncoder(nn.Module):
 
 
 class RepVggBlock(nn.Module):
-    """``SiLU(BN(conv3x3 x) + BN(conv1x1 x))``, both branches run."""
+    """``SiLU(BN(conv3x3 x) + BN(conv1x1 x))``, both branches run; the
+    3x3 branch's BatchNorm, the add and the SiLU in one op."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -155,7 +156,7 @@ class RepVggBlock(nn.Module):
         self.conv2 = ConvNormLayer(ch, ch, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.conv1(x) + self.conv2(x))
+        return self.conv1.add_act(x, self.conv2(x), "silu")
 
 
 class CSPRepLayer(nn.Module):

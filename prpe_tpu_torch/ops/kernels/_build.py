@@ -50,8 +50,8 @@ SIGNATURES = {
         "prpe_linear_bf16": [_P] * 5 + [_I] * 3 + [_P],
     },
     "bn_act": {
-        "prpe_bn_act_f32": [_P] * 5 + [_I] * 5 + [_P],
-        "prpe_bn_act_bf16": [_P] * 5 + [_I] * 5 + [_P],
+        "prpe_bn_act_f32": [_P] * 6 + [_I] * 5 + [_P],
+        "prpe_bn_act_bf16": [_P] * 6 + [_I] * 5 + [_P],
     },
     "ms_deform_attn": {
         "prpe_msda_f32": [_P] * 5 + [_I] * 8 + [_P],
@@ -61,11 +61,12 @@ SIGNATURES = {
 
 # one counter per kernel route; ``mhsa`` and ``mhsa_bhtd`` share a library,
 # and so do ``ln_mhsa`` and its stages alone (``layernorm``, ``linear``);
-# ``bn_act`` is eval BatchNorm with its activation, ``msda`` multi-scale
+# ``bn_act`` is eval BatchNorm with its activation, ``bn_act_residual`` the
+# share of those launches that also add a residual, ``msda`` multi-scale
 # deformable attention
 launches: Dict[str, int] = {
     name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa", "layernorm", "linear", "bn_act",
-                         "msda")}
+                         "bn_act_residual", "msda")}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

@@ -10,6 +10,13 @@ PReLU``: ``where(y >= 0, y, alpha * y)``) or ``"relu"`` (``F.relu``, after
 the BatchNorms of ResNet-50-vd in ``nn/resnet.py``). It replaces no TPU
 kernel.
 
+An optional ``residual`` of ``x``'s dtype, sizes and strides is added
+between the BatchNorm and the activation, ``act(x * scale + bias +
+residual)``, rounded after the add too, as ATen's separate add rounds: the
+last BatchNorm of a ResNet-50-vd bottleneck with its shortcut and ReLU, and
+a RepVGG block's two branches and SiLU (``nn/rtdetr.py``). Such a launch
+also counts in ``launches["bn_act_residual"]``.
+
 The launch is the custom op ``prpe::bn_act`` (a fake implementation gives
 its output), so an exported program holds it as one node. Its CPU
 implementation is the plain version; its CUDA implementation launches the
@@ -38,12 +45,16 @@ _entry = {}
 
 
 def bn_act_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                 alpha: Optional[torch.Tensor], act: str, dim: int) -> torch.Tensor:
+                 alpha: Optional[torch.Tensor], act: str, dim: int,
+                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch: ``x * scale + bias`` over channel axis ``dim``, then
-    ``act``; ``scale``, ``bias`` and ``alpha`` are (C,) in ``x``'s dtype."""
+    ``+ residual`` where given, then ``act``; ``scale``, ``bias`` and
+    ``alpha`` are (C,) in ``x``'s dtype."""
     shape = [1] * x.dim()
     shape[dim] = -1
     y = x * scale.view(shape) + bias.view(shape)
+    if residual is not None:
+        y = y + residual
     if act == "silu":
         return F.silu(y)
     if act == "prelu":
@@ -69,12 +80,14 @@ def geometry(x: torch.Tensor, dim: int) -> Optional[Tuple[int, int, int]]:
     return x.numel() // max(c * inner, 1), c, inner
 
 
-def _check(x, scale, bias, alpha, dim: int) -> Tuple[int, int, int]:
+def _check(x, scale, bias, alpha, dim: int, residual=None) -> Tuple[int, int, int]:
     """``(outer, C, inner)`` of a tensor the kernel takes: bf16 or fp32, at
     most ``MAX_CHANNELS`` channels, fewer than 2^31 elements (its indices
     are 32-bit), in a layout that :func:`geometry` reads, with ``scale``,
     ``bias`` and ``alpha`` (where given) contiguous (C,) tensors of its
-    dtype on its device. Raises ``ValueError`` otherwise."""
+    dtype on its device, and ``residual`` (where given) of its dtype,
+    device, sizes and strides (those of axes longer than 1: the kernel
+    reads it at ``x``'s offsets). Raises ``ValueError`` otherwise."""
     if x.dtype not in _SUFFIX:
         raise ValueError(f"bn_act: the kernel takes bf16 and fp32, not {x.dtype}")
     shape = geometry(x, dim)
@@ -91,10 +104,17 @@ def _check(x, scale, bias, alpha, dim: int) -> Tuple[int, int, int]:
             raise ValueError(f"bn_act: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
                              f"contiguous {t.is_contiguous()}; x is {x.dtype} with {c} "
                              f"channels on {x.device}")
+    if residual is not None and (
+            residual.dtype != x.dtype or residual.device != x.device
+            or residual.shape != x.shape
+            or any(a != b for n, a, b in zip(x.shape, x.stride(), residual.stride()) if n > 1)):
+        raise ValueError(f"bn_act: residual is {residual.dtype} {tuple(residual.shape)} with "
+                         f"strides {residual.stride()} on {residual.device}; x is {x.dtype} "
+                         f"{tuple(x.shape)} with strides {x.stride()} on {x.device}")
     return shape
 
 
-def _launch(x, scale, bias, alpha, act: str, dim: int) -> torch.Tensor:
+def _launch(x, scale, bias, alpha, act: str, dim: int, residual=None) -> torch.Tensor:
     """Launch ``prpe_bn_act_<dtype>`` on a CUDA tensor, checked once
     (:func:`_check`). The host's cost counts here (240 launches a cascade
     call): the current device and stream come from the raw getters, and
@@ -102,8 +122,8 @@ def _launch(x, scale, bias, alpha, act: str, dim: int) -> torch.Tensor:
     index = x.get_device()
     if index != torch._C._cuda_getDevice():
         with torch.cuda.device(index):
-            return _launch(x, scale, bias, alpha, act, dim)
-    outer, c, inner = _check(x, scale, bias, alpha, dim)
+            return _launch(x, scale, bias, alpha, act, dim, residual)
+    outer, c, inner = _check(x, scale, bias, alpha, dim, residual)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
@@ -111,37 +131,44 @@ def _launch(x, scale, bias, alpha, act: str, dim: int) -> torch.Tensor:
     if fn is None:
         fn = _entry[x.dtype] = getattr(_build.load("bn_act"), f"prpe_bn_act_{_SUFFIX[x.dtype]}")
     err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             None if alpha is None else alpha.data_ptr(), y.data_ptr(),
+             None if alpha is None else alpha.data_ptr(),
+             None if residual is None else residual.data_ptr(), y.data_ptr(),
              outer, c, inner, ACTS[act], index, torch._C._cuda_getCurrentRawStream(index))
     _build.check(err, "bn_act launch")
     _build.launches["bn_act"] += 1
+    if residual is not None:
+        _build.launches["bn_act_residual"] += 1
     return y
 
 
 @torch.library.custom_op("prpe::bn_act", mutates_args=(), device_types="cpu")
 def _bn_act_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               alpha: Optional[torch.Tensor], act: str, dim: int) -> torch.Tensor:
-    return bn_act_plain(x, scale, bias, alpha, act, dim)
+               alpha: Optional[torch.Tensor], act: str, dim: int,
+               residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return bn_act_plain(x, scale, bias, alpha, act, dim, residual)
 
 
 @_bn_act_op.register_kernel("cuda")
-def _(x, scale, bias, alpha, act, dim):
-    return _launch(x, scale, bias, alpha, act, dim)
+def _(x, scale, bias, alpha, act, dim, residual=None):
+    return _launch(x, scale, bias, alpha, act, dim, residual)
 
 
 @_bn_act_op.register_fake
-def _(x, scale, bias, alpha, act, dim):
+def _(x, scale, bias, alpha, act, dim, residual=None):
     return torch.empty_like(x)
 
 
 def bn_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-           alpha: Optional[torch.Tensor], act: str, dim: int = 1) -> torch.Tensor:
-    """``act(x * scale + bias)`` over channel axis ``dim`` in ``x``'s dtype,
-    rounded as :func:`bn_act_plain` rounds. ``scale``, ``bias`` and
-    ``alpha`` (``act`` "prelu" only) are contiguous (C,) tensors in ``x``'s
-    dtype on its device. A CUDA tensor launches the kernel, or raises
-    ``ValueError`` where the kernel does not take it (:func:`_check`); a
-    CPU tensor takes the plain version."""
+           alpha: Optional[torch.Tensor], act: str, dim: int = 1,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``act(x * scale + bias + residual)`` over channel axis ``dim`` in
+    ``x``'s dtype, rounded as :func:`bn_act_plain` rounds; no add where
+    ``residual`` is None. ``scale``, ``bias`` and ``alpha`` (``act``
+    "prelu" only) are contiguous (C,) tensors in ``x``'s dtype on its
+    device; ``residual`` has ``x``'s dtype, device, sizes and strides. A
+    CUDA tensor launches the kernel, or raises ``ValueError`` where the
+    kernel does not take it (:func:`_check`); a CPU tensor takes the plain
+    version."""
     if act not in ACTS or (act == "prelu") != (alpha is not None):
         raise ValueError(f"bn_act: act {act!r} with alpha {'given' if alpha is not None else None}")
-    return _bn_act_op(x, scale, bias, alpha, act, dim)
+    return _bn_act_op(x, scale, bias, alpha, act, dim, residual)

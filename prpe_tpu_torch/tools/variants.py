@@ -1,6 +1,6 @@
 """Time variants of a kernel source on the card, in turns, in one process.
 
-    python3 -m prpe_tpu_torch.tools.variants {nms,mhsa,ln_mhsa} \\
+    python3 -m prpe_tpu_torch.tools.variants {nms,mhsa,ln_mhsa,bn_act} \\
         [--variant NAME 'OLD=>NEW' ['OLD=>NEW' ...]] ... [--rounds 2]
 
 A variant is ``prpe_tpu_torch/csrc/`` with each ``OLD`` text replaced by
@@ -22,7 +22,12 @@ kernel) and held against the plain PyTorch version:
   projection, M = B * 192) and ``prpe_layernorm_f32`` (max abs error against
   ``ln_mhsa_plain``, ``linear_plain``, ``layernorm_plain``). The stages are
   also timed as one library call each (``F.linear``, ``F.layer_norm``, fp32
-  without TF32), as the pseudo-variant ``library``.
+  without TF32), as the pseudo-variant ``library``;
+- ``bn_act``: ``prpe_bn_act_bf16`` on channels-last tensors of 128 frames
+  and 256 channels: with a residual and ReLU at 160^2 (ResNet-50-vd's first
+  stage), with a residual and SiLU at 80^2 (a RepVGG block of RT-DETR's
+  neck), and without a residual or activation at 160^2 (mismatches against
+  ``bn_act_plain``).
 
 Prints one JSON line per variant and shape with the card's name and power
 limit, and the ``ptxas`` register and spill lines of each build.
@@ -183,12 +188,38 @@ def ln_mhsa_cases(gen):
                    lambda want=want, y=y: float((y - want).abs().max()), library)
 
 
-CASES = {"nms": nms_cases, "mhsa": mhsa_cases, "ln_mhsa": ln_mhsa_cases}
+def bn_act_cases(gen):
+    from prpe_tpu_torch.ops.kernels.bn_act import ACTS, bn_act_plain
+
+    c = 256
+    for hw, act, residual in ((160, "relu", True), (80, "silu", True), (160, "none", False)):
+        shape = (128, c, hw, hw)
+        x, r = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                .contiguous(memory_format=torch.channels_last) for _ in range(2))
+        r = r if residual else None
+        scale, bias = (torch.rand(c, generator=gen, device="cuda").bfloat16() for _ in range(2))
+        y = torch.empty_like(x)
+        want = bn_act_plain(x, scale, bias, None, act, 1, r)
+
+        def call(dll, x=x, r=r, scale=scale, bias=bias, y=y, act=act):
+            return dll.prpe_bn_act_bf16(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), None,
+                                        None if r is None else r.data_ptr(), y.data_ptr(),
+                                        x.numel() // c, c, 1, ACTS[act], 0,
+                                        torch.cuda.current_stream().cuda_stream)
+
+        def err(y=y, want=want):
+            return float((y != want).sum())
+
+        yield (dict(shape=list(shape), act=act, residual=residual, dtype="bfloat16"), call, err,
+               None)
+
+
+CASES = {"nms": nms_cases, "mhsa": mhsa_cases, "ln_mhsa": ln_mhsa_cases, "bn_act": bn_act_cases}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("lib", choices=("nms", "mhsa", "ln_mhsa"))
+    parser.add_argument("lib", choices=tuple(CASES))
     parser.add_argument("--variant", nargs="+", action="append", default=[],
                         metavar=("NAME", "EDIT"), help="a name, then OLD=>NEW edits")
     parser.add_argument("--rounds", type=int, default=2)

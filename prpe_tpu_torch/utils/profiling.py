@@ -54,8 +54,10 @@ The counters of one call are the gating funnel: ``frames`` -> ``persons``
 ``pose_slots`` (top-G), with ``face_budget_saturated`` (1 where valid faces
 outnumbered the face slots) and the call's NMS (K1), packed attention (K2),
 fused eval BatchNorm and deformable attention launches, ``k1_launches``,
-``k2_launches``, ``bn_act_launches`` and ``msda_launches`` (0 where the
-path has no such kernel).
+``k2_launches``, ``bn_act_launches`` and ``msda_launches``, and
+``bn_act_residual_launches``, the fused BatchNorms that also added a
+residual (RT-DETR's bottlenecks and RepVGG blocks; each also counts in
+``bn_act_launches``); 0 where the path has no such kernel.
 
 The records of the most recent ``RING_CALLS`` calls are kept. :func:`spans`
 and :func:`counters` return those of the latest stretch of calls during
@@ -84,7 +86,7 @@ from prpe_tpu_torch.ops.kernels._build import launches
 RING_CALLS = 1024
 # kernel route in ``_build.launches`` -> the counter of its launches a call
 LAUNCH_COUNTERS = {"nms": "k1_launches", "mhsa": "k2_launches", "bn_act": "bn_act_launches",
-                   "msda": "msda_launches"}
+                   "bn_act_residual": "bn_act_residual_launches", "msda": "msda_launches"}
 
 
 def count_flops(fn: Callable, *args, **kwargs) -> Dict[str, float]:

@@ -5,6 +5,10 @@ call, ``x * scale + bias`` in the activation dtype, then the activation as a
 separate op. Also: the cached constants follow every change of the
 statistics and parameters, train mode and grad-enabled eval are the old
 code, and a warm eval ``ConvBN`` issues one op for its BatchNorm and SiLU.
+With a residual operand: the op against the parent's BatchNorm, separate
+add and activation, ResNet-50-vd's bottlenecks and RT-DETR's RepVGG blocks
+against their parent forwards and their grad-enabled eval, the refusals of
+a residual the kernel cannot read at ``x``'s offsets, and the export.
 The CUDA kernel itself is checked on the card
 (``tests/test_torch_bn_act_cuda.py``).
 
@@ -17,7 +21,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from prpe_tpu_torch.nn.common import BatchNorm, ConvBN, PReLU, _BatchStatsNorm, init_weights
 from prpe_tpu_torch.nn.irnet import BasicBlockIR, IRNet
-from prpe_tpu_torch.nn.resnet import ConvNormLayer, ResNetVD
+from prpe_tpu_torch.nn.resnet import BottleNeckD, ConvNormLayer, ResNetVD, ShortcutD
+from prpe_tpu_torch.nn.rtdetr import RepVggBlock
 from prpe_tpu_torch.nn.yolo import YOLO
 from prpe_tpu_torch.ops.kernels import bn_act as bn_act_mod
 from prpe_tpu_torch.ops.kernels.bn_act import bn_act, bn_act_plain, geometry
@@ -56,6 +61,21 @@ def parent_eval(bn, x, act=None):
         return F.relu(y)
     if isinstance(act, PReLU):
         alpha = act.alpha.to(x.dtype).view(1, -1, *([1] * (x.dim() - 2)))
+        return torch.where(y >= 0, y, alpha * y)
+    return y
+
+
+def parent_add_act(y, residual, act):
+    """The parent's add of a residual to a BatchNorm's output and the
+    activation after it, as separate ops (``F.relu(out + shortcut)``,
+    ``F.silu(a + b)``)."""
+    y = y + residual
+    if act == "silu":
+        return F.silu(y)
+    if act == "relu":
+        return F.relu(y)
+    if isinstance(act, PReLU):
+        alpha = act.alpha.to(y.dtype).view(1, -1, *([1] * (y.dim() - 2)))
         return torch.where(y >= 0, y, alpha * y)
     return y
 
@@ -144,6 +164,43 @@ def _parent_ir_block(m, x):
     return parent_eval(m.bn2, r) + parent_eval(m.shortcut_bn, m.shortcut_conv(x))
 
 
+def _built(module, gen):
+    init_weights(module, gen)
+    return randomize(module, gen).eval()
+
+
+def _parent_conv_norm(m, x, act=None):
+    return parent_eval(m.norm, m.conv(x), act)
+
+
+def _parent_bottleneck(m, x):
+    """``BottleNeckD.forward`` as the parent ran it: ``relu(branch2c(...) +
+    shortcut)``, the shortcut's pool and conv as before."""
+    out = _parent_conv_norm(m.branch2a, x, "relu")
+    out = _parent_conv_norm(m.branch2c, _parent_conv_norm(m.branch2b, out, "relu"))
+    if m.shortcut:
+        short = x
+    elif isinstance(m.short, ShortcutD):
+        short = _parent_conv_norm(m.short.conv, F.avg_pool2d(x, 2, 2, 0, ceil_mode=True))
+    else:
+        short = _parent_conv_norm(m.short, x)
+    return F.relu(out + short)
+
+
+def _parent_rep_vgg(m, x):
+    return F.silu(_parent_conv_norm(m.conv1, x) + _parent_conv_norm(m.conv2, x))
+
+
+# the residual blocks: ResNet-50-vd's bottleneck with the identity, a 1x1
+# ConvNormLayer and the vd shortcut (pool, then 1x1), and RT-DETR's RepVGG
+# block: (build, input channels)
+RESIDUAL_BLOCKS = {
+    "bottleneck_identity": (lambda g: _built(BottleNeckD(C, C // 4, 1, True), g), C),
+    "bottleneck_conv": (lambda g: _built(BottleNeckD(5, C // 4, 1, False), g), 5),
+    "bottleneck_pool": (lambda g: _built(BottleNeckD(5, C // 4, 2, False), g), 5),
+    "rep_vgg": (lambda g: _built(RepVggBlock(C), g), C),
+}
+
 SITES = {
     # ConvBN with SiLU and without (YOLO), BatchNorm -> PReLU and the
     # standalone ones (IR-Net's blocks)
@@ -153,6 +210,9 @@ SITES = {
     "ir_block": (_ir_block, 16, _parent_ir_block),
     # ResNet-50-vd's ConvNormLayer with its ReLU (RT-DETR's backbone)
     "conv_norm_relu": (_conv_norm_relu, 5, lambda m, x: parent_eval(m.norm, m.conv(x), "relu")),
+    # BatchNorm, residual add and activation in one op (RT-DETR)
+    **{name: (build, cin, _parent_rep_vgg if name == "rep_vgg" else _parent_bottleneck)
+       for name, (build, cin) in RESIDUAL_BLOCKS.items()},
 }
 
 
@@ -191,6 +251,52 @@ def test_whole_models_match_grad_enabled_eval(dtype):
         with torch.inference_mode():
             got = model(x)
         assert len(got) == len(want) and all(same(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_a_residual_matches_the_parents_separate_add(dtype, act, layout):
+    """``act(bn(x) + residual)`` in one op (the plain version, the op, the
+    eval BatchNorm under ``no_grad`` and ``inference_mode``, cold and warm,
+    and grad-enabled eval) equals the parent's BatchNorm, add and activation
+    as separate ops, with the residual on either side of the add."""
+    gen = torch.Generator().manual_seed(len(dtype) * 13 + len(act) * 5 + len(layout))
+    bn = randomize(BatchNorm(C, 1e-3), gen).eval()
+    a = act_arg(act, gen=gen)
+    x = make_input(layout, DTYPES[dtype], gen)
+    r = make_input(layout, DTYPES[dtype], gen)
+    want = parent_add_act(parent_eval(bn, x), r, a)
+    assert same(parent_add_act(r, parent_eval(bn, x), a), want)
+    for ctx in (torch.no_grad, torch.inference_mode):
+        with ctx():
+            for _ in range(2):
+                assert same(bn(x, a, r), want)
+    assert same(bn(x, a, r), want)  # grad-enabled eval: the plain version
+    scale, bias = bn.folded(x.dtype)
+    alpha = a.alpha.to(x.dtype) if act == "prelu" else None
+    assert same(bn_act_plain(x, scale, bias, alpha, act, 1, r), want)
+    assert same(torch.ops.prpe.bn_act(x, scale, bias, alpha, act, 1, r), want)
+    assert same(bn_act(x, scale, bias, alpha, act, 1, residual=r), want)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("block", sorted(RESIDUAL_BLOCKS))
+def test_residual_blocks_under_no_grad_equal_grad_enabled_eval(block, dtype):
+    """``BottleNeckD`` (each shortcut kind) and ``RepVggBlock``: the no-grad
+    forward, whose last BatchNorm adds the residual in the fused op, equals
+    the grad-enabled eval forward, which records the gradient through plain
+    ops, and that one still reaches the block's input."""
+    gen = torch.Generator().manual_seed(12)
+    build, cin = RESIDUAL_BLOCKS[block]
+    m = build(gen).to(DTYPES[dtype])
+    x = make_input("channels_last", DTYPES[dtype], gen, n=2, c=cin, hw=(8, 6))
+    with torch.no_grad():
+        got = m(x)
+    want = m(x.requires_grad_())
+    assert same(got, want)
+    (grad,) = torch.autograd.grad(want.float().sum(), x)
+    assert bool(grad.abs().sum() > 0)
 
 
 def test_the_constants_are_kept_until_a_source_changes():
@@ -366,6 +472,23 @@ def test_the_kernel_takes_bf16_and_fp32_dense_tensors_only():
             bn_act_mod._check(bad, t, t, None, 1)
 
 
+@pytest.mark.parametrize("fault", ["dtype", "shape", "strides", "device"])
+def test_the_residual_must_match_the_input(fault):
+    """The kernel reads the residual at ``x``'s offsets: another dtype,
+    shape, layout or device raises. Strides of axes of length 1 do not
+    matter (no offset depends on them)."""
+    x = torch.zeros(2, 8, 4, 4, dtype=torch.bfloat16)
+    s = torch.ones(8, dtype=torch.bfloat16)
+    bad = {"dtype": x.float(), "shape": x[:, :, :3], "device": x.to("meta"),
+           "strides": x.contiguous(memory_format=torch.channels_last)}[fault]
+    with pytest.raises(ValueError):
+        bn_act_mod._check(x, s, s, None, 1, bad)
+    assert bn_act_mod._check(x, s, s, None, 1, x.clone()) == (2, 8, 16)
+    one = torch.zeros(1, 8, 4, 4, dtype=torch.bfloat16)
+    other = torch.zeros(128, dtype=torch.bfloat16).as_strided(one.shape, (7, 16, 4, 1))
+    assert bn_act_mod._check(one, s, s, None, 1, other) == (1, 8, 16)
+
+
 @pytest.mark.parametrize("fault", ["dtype", "length", "strided", "device"])
 @pytest.mark.parametrize("which", ["scale", "bias", "alpha"])
 def test_the_constants_must_match_the_input(which, fault):
@@ -405,5 +528,29 @@ def test_export_keeps_the_op_as_one_node():
         got = program.module()(x)
     nodes = [n for n in program.graph.nodes if "bn_act" in str(n.target)]
     assert len(nodes) == 1
+    with torch.inference_mode():
+        assert torch.equal(got, m(x))
+
+
+@pytest.mark.parametrize("block", ["bottleneck_identity", "rep_vgg"])
+def test_export_keeps_the_op_with_a_residual_as_one_node(block):
+    """Exported under ``torch.no_grad``, a bottleneck holds three
+    ``prpe::bn_act`` nodes and a RepVGG block two, one of them with the
+    residual as an operand, whose output is the block's: no separate
+    activation is left."""
+    gen = torch.Generator().manual_seed(13)
+    build, cin = RESIDUAL_BLOCKS[block]
+    m = build(gen)
+    x = make_input("nchw", torch.float32, gen, n=2, c=cin, hw=(8, 6))
+    with torch.no_grad():
+        program = torch.export.export(m, (x,))
+        got = program.module()(x)
+    nodes = [n for n in program.graph.nodes if "bn_act" in str(n.target)]
+    assert len(nodes) == {"bottleneck_identity": 3, "rep_vgg": 2}[block]
+    with_residual = [n for n in nodes if len(n.args) > 6 and n.args[6] is not None]
+    assert len(with_residual) == 1
+    assert program.graph.output_node().args[0][0] is with_residual[0]
+    targets = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert not any(t.startswith(("aten.relu", "aten.silu")) for t in targets), targets
     with torch.inference_mode():
         assert torch.equal(got, m(x))

@@ -259,3 +259,34 @@ def test_traced_call_keeps_the_detectors_spans_and_msda_launches(cascade, monkey
     for part in ("backbone", "encoder", "select", "decoder"):
         assert parents[f"rtdetr.{part}"] == "cascade.person_rtdetr"
     assert profiling.counters()[-1]["msda_launches"] == TINY["num_decoder_layers"]
+
+
+def test_traced_call_counts_the_residual_batchnorms(cascade, monkeypatch):
+    """``bn_act_residual_launches``: 28 fused BatchNorms a call add a
+    residual, the last of each of ResNet-50-vd's 16 bottlenecks and one in
+    each of the neck's 12 RepVGG blocks (widths do not change the count);
+    each also counts in ``bn_act_launches``. Here the op's CPU
+    implementation counts launches, as the card's wrapper does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from prpe_tpu_torch.ops.kernels import bn_act as bn_act_mod
+    from prpe_tpu_torch.ops.kernels._build import launches
+    from prpe_tpu_torch.utils import profiling
+
+    plain = bn_act_mod.bn_act_plain
+
+    def counting_plain(*args):
+        launches["bn_act"] += 1
+        if args[6] is not None:
+            launches["bn_act_residual"] += 1
+        return plain(*args)
+
+    monkeypatch.setattr(bn_act_mod, "bn_act_plain", counting_plain)
+    monkeypatch.setitem(launches, "bn_act", 0)
+    monkeypatch.setitem(launches, "bn_act_residual", 0)
+    run, frames, gallery, _ = cascade
+    with profile(activities=[ProfilerActivity.CPU]):
+        run(frames, gallery)
+    got = profiling.counters()[-1]
+    assert got["bn_act_residual_launches"] == launches["bn_act_residual"] == 28
+    assert got["bn_act_launches"] == launches["bn_act"] > 28

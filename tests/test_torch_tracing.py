@@ -142,7 +142,8 @@ def test_counters_are_the_results_own_masks(cascade, case):
         "gated_persons": int(res.person_gated.sum()),
         "pose_slots": POSE_CAPACITY, "pose_slots_used": int(res.pose_valid.sum()),
         "face_budget_saturated": int(res.face_budget_saturated),
-        "k1_launches": 0, "k2_launches": 0, "bn_act_launches": 0, "msda_launches": 0,
+        "k1_launches": 0, "k2_launches": 0, "bn_act_launches": 0,
+        "bn_act_residual_launches": 0, "msda_launches": 0,
     }
     assert got["matched_faces"] > 0 and got["pose_slots_used"] > 0
 
@@ -180,8 +181,10 @@ def test_outputs_are_bit_identical_with_tracing(cascade, case):
 
 def test_bn_act_launches_count_every_batchnorm(cascade, monkeypatch):
     """``bn_act_launches``: one fused BatchNorm a call for each BatchNorm of
-    the detectors, IR-Net and ViTPose, each run once a call; here the op's
-    CPU implementation counts a launch, as the card's wrapper does."""
+    the detectors, IR-Net and ViTPose, each run once a call, and none of
+    them adds a residual (``bn_act_residual_launches`` 0: the YOLO cascade
+    has no such site); here the op's CPU implementation counts a launch, as
+    the card's wrapper does."""
     from prpe_tpu_torch.nn.common import BatchNorm
     from prpe_tpu_torch.ops.kernels import bn_act as bn_act_mod
     from prpe_tpu_torch.ops.kernels._build import launches
@@ -190,13 +193,17 @@ def test_bn_act_launches_count_every_batchnorm(cascade, monkeypatch):
 
     def counting_plain(*args):
         launches["bn_act"] += 1
+        if args[6] is not None:
+            launches["bn_act_residual"] += 1
         return plain(*args)
 
     monkeypatch.setattr(bn_act_mod, "bn_act_plain", counting_plain)
     monkeypatch.setitem(launches, "bn_act", 0)
+    monkeypatch.setitem(launches, "bn_act_residual", 0)
     run, images, gallery = _runner_and_inputs(cascade, "float")
     _traced(run, images, gallery)
     model = cascade[0]
     want = sum(isinstance(m, BatchNorm) for m in model.modules())
     assert want > 0
     assert profiling.counters()[-1]["bn_act_launches"] == launches["bn_act"] == want
+    assert profiling.counters()[-1]["bn_act_residual_launches"] == launches["bn_act_residual"] == 0
