@@ -1822,24 +1822,29 @@ def collect_ranks(world: int, q, procs, timeout_s: float = 900.0) -> list:
 
 def count_on_cpu() -> None:
     """For a rehearsal on the CPU: each custom op's CPU kernel (its plain
-    version) counts a launch, as its CUDA kernel does on the card."""
-    from prpe_tpu_torch.ops.kernels import _build, attention, bn_act, ms_deform_attn, nms
+    version) counts a launch, as its CUDA kernel does on the card, in the
+    routes its wrapper declares."""
+    from prpe_tpu_torch.ops.kernels import attention, bn_act, launches, ms_deform_attn, nms
 
-    def counting(op, plain, key):
+    def counting(op, plain, route):
         def fn(*args):
-            _build.launches[key] += 1
+            launches[route] += 1
             return plain(*args)
         torch.library.register_kernel(op, "cpu", fn)
 
-    counting("prpe::mhsa_packed", attention.mhsa_packed_plain, "mhsa")
-    counting("prpe::mhsa_bhtd", attention.mhsa_bhtd_plain, "mhsa_bhtd")
-    counting("prpe::nms_keep", nms.nms_keep_plain, "nms")
-    counting("prpe::ms_deform_attn", ms_deform_attn.ms_deform_attn_plain, "msda")
+    packed, bhtd = attention.LIBRARY.routes
+    counting("prpe::mhsa_packed", attention.mhsa_packed_plain, packed)
+    counting("prpe::mhsa_bhtd", attention.mhsa_bhtd_plain, bhtd)
+    (route,) = nms.LIBRARY.routes
+    counting("prpe::nms_keep", nms.nms_keep_plain, route)
+    (route,) = ms_deform_attn.LIBRARY.routes
+    counting("prpe::ms_deform_attn", ms_deform_attn.ms_deform_attn_plain, route)
+    bn, bn_residual = bn_act.LIBRARY.routes
 
     def bn_act_counting(*args):
-        _build.launches["bn_act"] += 1
+        launches[bn] += 1
         if len(args) > 6 and args[6] is not None:  # a residual: that route's counter too
-            _build.launches["bn_act_residual"] += 1
+            launches[bn_residual] += 1
         return bn_act.bn_act_plain(*args)
 
     torch.library.register_kernel("prpe::bn_act", "cpu", bn_act_counting)

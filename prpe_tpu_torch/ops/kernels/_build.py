@@ -1,5 +1,5 @@
-"""Build the CUDA sources in ``prpe_tpu_torch/csrc/`` at first use and load
-them with ctypes.
+"""Build the CUDA sources in ``prpe_tpu_torch/csrc/`` at first use, load
+them with ctypes and launch their entry points.
 
 Each ``csrc/<name>.cu`` exports plain C entry points and is compiled alone
 by ``nvcc`` into ``build/prpe_tpu_torch/lib<name>-<hash>.so`` at the root of
@@ -7,8 +7,10 @@ the checkout. The hash covers the source, the shared ``csrc/*.cuh`` headers
 and the flags, so an edited source or header is rebuilt. Only sources in the
 repository are compiled.
 
-Each wrapper adds one to its counter in ``launches`` where it launches its
-kernel, so a caller can show that a run went through the kernels.
+This module names no kernel. Each wrapper declares its source as a
+:class:`Library` and launches through :meth:`Library.launch`, which adds one
+to the launch's counters in ``launches``, so a caller can show that a run
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -27,52 +31,66 @@ BUILD_DIR = _PKG.parent / "build" / "prpe_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# NMS must reproduce the plain version's fp32 IoU bit for bit: no FMA
-# contraction (IEEE division is nvcc's default without --use_fast_math).
-EXTRA_FLAGS: Dict[str, List[str]] = {"nms": ["-fmad=false"]}
+# the ctypes kinds of the entry points' parameters
+PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# C signatures of the entry points: name -> (symbol, argtypes)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-SIGNATURES = {
-    "nms": {"prpe_nms_keep": [_P, _P, _P, _I, _I, _F, _P]},
-    "mhsa": {
-        "prpe_mhsa_packed_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-        "prpe_mhsa_packed_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-        "prpe_mhsa_bhtd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-        "prpe_mhsa_bhtd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    },
-    "ln_mhsa": {
-        "prpe_ln_mhsa_f32": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
-        "prpe_ln_mhsa_bf16": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
-        "prpe_layernorm_f32": [_P] * 4 + [_I, _I, _F, _P],
-        "prpe_layernorm_bf16": [_P] * 4 + [_I, _I, _F, _P],
-        "prpe_linear_f32": [_P] * 5 + [_I] * 3 + [_P],
-        "prpe_linear_bf16": [_P] * 5 + [_I] * 3 + [_P],
-    },
-    "bn_act": {
-        "prpe_bn_act_f32": [_P] * 6 + [_I] * 5 + [_P],
-        "prpe_bn_act_bf16": [_P] * 6 + [_I] * 5 + [_P],
-    },
-    "ms_deform_attn": {
-        "prpe_msda_f32": [_P] * 5 + [_I] * 8 + [_P],
-        "prpe_msda_bf16": [_P] * 5 + [_I] * 8 + [_P],
-    },
-}
-
-# one counter per kernel route; ``mhsa`` and ``mhsa_bhtd`` share a library,
-# and so do ``ln_mhsa`` and its stages alone (``layernorm``, ``linear``);
-# ``bn_act`` is eval BatchNorm with its activation, ``bn_act_residual`` the
-# share of those launches that also add a residual, ``msda`` multi-scale
-# deformable attention
-launches: Dict[str, int] = {
-    name: 0 for name in ("nms", "mhsa", "mhsa_bhtd", "ln_mhsa", "layernorm", "linear", "bn_act",
-                         "bn_act_residual", "msda")}
-_libs: Dict[str, ctypes.CDLL] = {}
+# every declared library by source name, in the order of declaration
+libraries: Dict[str, "Library"] = {}
+# launches per route: one zero a route from its library's declaration on
+launches: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+class Library:
+    """``csrc/<name>.cu`` as its wrapper declares it: ``entry_points`` maps
+    each ``extern "C"`` symbol to its ctypes argument types (each returns a
+    CUDA error code and takes the stream last), ``routes`` are the counters
+    in ``launches`` its launches add to, ``flags`` its nvcc flags beyond
+    ``NVCC_FLAGS``. Constructing one registers it."""
+
+    def __init__(self, name: str, entry_points: Dict[str, Sequence], routes: Sequence[str],
+                 flags: Sequence[str] = ()):
+        self.name, self.entry_points = name, entry_points
+        self.routes, self.flags = tuple(routes), list(flags)
+        self._dll: Optional[ctypes.CDLL] = None
+        self._fns: Dict[str, Callable[..., int]] = {}
+        libraries[name] = self
+        for route in self.routes:
+            launches.setdefault(route, 0)
+
+    def load(self) -> ctypes.CDLL:
+        """The loaded library, built first if needed."""
+        if self._dll is None:
+            _finish(self.name, _start(self.name, self.flags))
+            dll = ctypes.CDLL(str(_target(self.name, self.flags)))
+            for sym, argtypes in self.entry_points.items():
+                fn = getattr(dll, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self._dll = dll
+        return self._dll
+
+    def launch(self, symbol: str, routes: Sequence[str], x: torch.Tensor, *args) -> None:
+        """``symbol(*args, stream)`` on CUDA tensor ``x``'s device and its
+        current stream; raises on a CUDA error and adds one to each of
+        ``routes``. The host's cost counts here (hundreds of launches a
+        cascade call): the symbol is looked up once, the device and stream
+        come from the raw getters, and the device is switched only where
+        ``x`` is not on the current one."""
+        index = x.get_device()
+        if index != torch._C._cuda_getDevice():
+            with torch.cuda.device(index):
+                return self.launch(symbol, routes, x, *args)
+        fn = self._fns.get(symbol)
+        if fn is None:
+            fn = self._fns[symbol] = getattr(self.load(), symbol)
+        check(fn(*args, torch._C._cuda_getCurrentRawStream(index)), f"{symbol} launch")
+        for route in routes:
+            launches[route] += 1
 
 
 def _nvcc() -> str:
@@ -83,24 +101,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _target(name: str) -> Path:
-    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+def _target(name: str, flags: Sequence[str] = ()) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(flags).encode())
+    h.update(" ".join(NVCC_FLAGS + list(flags)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> Optional[subprocess.Popen]:
+def _start(name: str, flags: Sequence[str]) -> Optional[subprocess.Popen]:
     """Start nvcc for ``name`` unless its library is already built."""
-    out = _target(name)
+    out = _target(name, flags)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o", str(tmp),
-           str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.prpe_paths = (tmp, out)  # type: ignore[attr-defined]
     return proc
@@ -120,27 +136,14 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> str:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every kernel source, one nvcc per source, all started together.
+    """Build every declared library, one nvcc per source, all started
+    together.
 
     Returns the compiler's output per source (registers, shared memory and
     spills from ``-Xptxas -v``); empty for a library that was already built.
     """
-    procs = {name: _start(name) for name in SIGNATURES}
+    procs = {name: _start(name, lib.flags) for name, lib in libraries.items()}
     return {name: _finish(name, proc) for name, proc in procs.items()}
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_target(name)))
-        for sym, argtypes in SIGNATURES[name].items():
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
 
 
 def check(err: int, what: str) -> None:

@@ -26,8 +26,12 @@ from __future__ import annotations
 
 import torch
 
-from prpe_tpu_torch.ops.kernels import _build
+from prpe_tpu_torch.ops.kernels._build import FLOAT, INT, PTR, Library
 
+# a launch counts in the route of its layout: "mhsa" packed, "mhsa_bhtd"
+LIBRARY = Library("mhsa", {f"prpe_mhsa_{layout}_{dt}": [PTR] * 4 + [INT] * 4 + [FLOAT, PTR]
+                           for layout in ("packed", "bhtd") for dt in ("f32", "bf16")},
+                  routes=("mhsa", "mhsa_bhtd"))
 # longest sequence the kernel takes: the JAX package's MAX_PALLAS_T
 MAX_T = 1024
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -66,19 +70,15 @@ def _check(name: str, q, k, v, t: int, d: int) -> None:
 
 
 def _launch(name: str, layout: str, q, k, v, b: int, t: int, heads: int, d: int) -> torch.Tensor:
-    """Launch ``prpe_mhsa_<layout>_<dtype>`` on checked q/k/v."""
+    """Launch ``prpe_mhsa_<layout>_<dtype>`` on checked q/k/v, counted in
+    route ``name``."""
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must start on 16-byte boundaries")
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    fn = getattr(_build.load("mhsa"), f"prpe_mhsa_{layout}_{_SUFFIX[q.dtype]}")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, t, heads, d, float(d ** -0.5), stream)
-    _build.check(err, f"{name} launch")
-    _build.launches[name] += 1
+    LIBRARY.launch(f"prpe_mhsa_{layout}_{_SUFFIX[q.dtype]}", (name,), q, q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), o.data_ptr(), b, t, heads, d, float(d ** -0.5))
     return o
 
 

@@ -15,7 +15,7 @@ between the BatchNorm and the activation, ``act(x * scale + bias +
 residual)``, rounded after the add too, as ATen's separate add rounds: the
 last BatchNorm of a ResNet-50-vd bottleneck with its shortcut and ReLU, and
 a RepVGG block's two branches and SiLU (``nn/rtdetr.py``). Such a launch
-also counts in ``launches["bn_act_residual"]``.
+also counts in the route ``bn_act_residual``.
 
 The launch is the custom op ``prpe::bn_act`` (a fake implementation gives
 its output), so an exported program holds it as one node. Its CPU
@@ -33,15 +33,16 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from prpe_tpu_torch.ops.kernels import _build
+from prpe_tpu_torch.ops.kernels._build import INT, PTR, Library
 
+# every launch counts in "bn_act"; one with a residual in "bn_act_residual" too
+LIBRARY = Library("bn_act", {f"prpe_bn_act_{dt}": [PTR] * 6 + [INT] * 5 + [PTR]
+                             for dt in ("f32", "bf16")}, routes=("bn_act", "bn_act_residual"))
 ACTS = {"none": 0, "silu": 1, "prelu": 2, "relu": 3}
 # most channels the kernel stages in shared memory (``kMaxChannels``)
 MAX_CHANNELS = 4096
 _MAX_ITEMS = 2**31 - 1
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the entry point of each dtype, once loaded
-_entry = {}
 
 
 def bn_act_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -116,28 +117,16 @@ def _check(x, scale, bias, alpha, dim: int, residual=None) -> Tuple[int, int, in
 
 def _launch(x, scale, bias, alpha, act: str, dim: int, residual=None) -> torch.Tensor:
     """Launch ``prpe_bn_act_<dtype>`` on a CUDA tensor, checked once
-    (:func:`_check`). The host's cost counts here (240 launches a cascade
-    call): the current device and stream come from the raw getters, and
-    the device is switched only where ``x`` is not on the current one."""
-    index = x.get_device()
-    if index != torch._C._cuda_getDevice():
-        with torch.cuda.device(index):
-            return _launch(x, scale, bias, alpha, act, dim, residual)
+    (:func:`_check`)."""
     outer, c, inner = _check(x, scale, bias, alpha, dim, residual)
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    fn = _entry.get(x.dtype)
-    if fn is None:
-        fn = _entry[x.dtype] = getattr(_build.load("bn_act"), f"prpe_bn_act_{_SUFFIX[x.dtype]}")
-    err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             None if alpha is None else alpha.data_ptr(),
-             None if residual is None else residual.data_ptr(), y.data_ptr(),
-             outer, c, inner, ACTS[act], index, torch._C._cuda_getCurrentRawStream(index))
-    _build.check(err, "bn_act launch")
-    _build.launches["bn_act"] += 1
-    if residual is not None:
-        _build.launches["bn_act_residual"] += 1
+    routes = ("bn_act",) if residual is None else ("bn_act", "bn_act_residual")
+    LIBRARY.launch(f"prpe_bn_act_{_SUFFIX[x.dtype]}", routes, x, x.data_ptr(), scale.data_ptr(),
+                   bias.data_ptr(), None if alpha is None else alpha.data_ptr(),
+                   None if residual is None else residual.data_ptr(), y.data_ptr(),
+                   outer, c, inner, ACTS[act], x.get_device())
     return y
 
 

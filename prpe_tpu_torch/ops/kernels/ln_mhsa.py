@@ -21,10 +21,15 @@ from typing import Optional
 
 import torch
 
-from prpe_tpu_torch.ops.kernels import _build
+from prpe_tpu_torch.ops.kernels._build import FLOAT, INT, PTR, Library
 from prpe_tpu_torch.ops.kernels.attention import MAX_T, mhsa_packed_plain
 
-_SYMBOL = {torch.float32: "prpe_ln_mhsa_f32", torch.bfloat16: "prpe_ln_mhsa_bf16"}
+# the arguments of ``prpe_<stage>_<dtype>``; a launch counts in its stage's route
+_ARGS = {"ln_mhsa": [PTR] * 13 + [INT] * 4 + [FLOAT, FLOAT, PTR],
+         "layernorm": [PTR] * 4 + [INT, INT, FLOAT, PTR],
+         "linear": [PTR] * 5 + [INT] * 3 + [PTR]}
+LIBRARY = Library("ln_mhsa", {f"prpe_{stage}_{dt}": args for stage, args in _ARGS.items()
+                              for dt in ("f32", "bf16")}, routes=tuple(_ARGS))
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the LayerNorm kernel holds a row in registers: at most 16 16-byte vectors a
 # lane of a warp, 2048 fp32 or 4096 bf16 values
@@ -67,13 +72,6 @@ def ln_mhsa_plain(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
     return linear_plain(o, wo, bo, residual=x)
 
 
-def _call(x: torch.Tensor, fn, *args) -> int:
-    """A C entry point on x's device, with its current stream as the last
-    argument; returns the CUDA error code."""
-    with torch.cuda.device(x.device):
-        return fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
-
-
 def _check_cuda(name: str, x: torch.Tensor, others, dtypes) -> None:
     if x.device.type != "cuda" or any(a.device != x.device for a in others):
         raise ValueError(f"{name}: x on {x.device}, other operands on "
@@ -113,11 +111,8 @@ def layernorm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    err = _call(x, getattr(_build.load("ln_mhsa"), f"prpe_layernorm_{_SUFFIX[x.dtype]}"),
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // cols, cols,
-                float(eps))
-    _build.check(err, "layernorm launch")
-    _build.launches["layernorm"] += 1
+    LIBRARY.launch(f"prpe_layernorm_{_SUFFIX[x.dtype]}", ("layernorm",), x, x.data_ptr(),
+                   w.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel() // cols, cols, float(eps))
     return y
 
 
@@ -146,12 +141,9 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    err = _call(x, getattr(_build.load("ln_mhsa"), f"prpe_linear_{_SUFFIX[x.dtype]}"),
-                x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                None if residual is None else residual.data_ptr(), out.data_ptr(),
-                x.numel() // k, n, k)
-    _build.check(err, "linear launch")
-    _build.launches["linear"] += 1
+    LIBRARY.launch(f"prpe_linear_{_SUFFIX[x.dtype]}", ("linear",), x, x.data_ptr(), w.data_ptr(),
+                   b.data_ptr(), None if residual is None else residual.data_ptr(),
+                   out.data_ptr(), x.numel() // k, n, k)
     return out
 
 
@@ -172,11 +164,9 @@ def _(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads, eps):
     if x.numel() == 0:
         return out
     ws = torch.empty(4 * b * t * c, dtype=x.dtype, device=x.device)
-    err = _call(x, getattr(_build.load("ln_mhsa"), _SYMBOL[x.dtype]),
-                *(p.data_ptr() for p in ptrs), out.data_ptr(), ws.data_ptr(),
-                b, t, c, heads, float(eps), float((c // heads) ** -0.5))
-    _build.check(err, "fused_ln_mhsa launch")
-    _build.launches["ln_mhsa"] += 1
+    LIBRARY.launch(f"prpe_ln_mhsa_{_SUFFIX[x.dtype]}", ("ln_mhsa",), x,
+                   *(p.data_ptr() for p in ptrs), out.data_ptr(), ws.data_ptr(),
+                   b, t, c, heads, float(eps), float((c // heads) ** -0.5))
     return out
 
 
@@ -193,7 +183,7 @@ def fused_ln_mhsa(x, ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
     implementation is the plain version."""
     args = (ln_w, ln_b, wq, bq, wk, bk, wv, bv, wo, bo)
     if x.device.type != "cpu":
-        _check_cuda("fused_ln_mhsa", x, args, tuple(_SYMBOL))
+        _check_cuda("fused_ln_mhsa", x, args, tuple(_SUFFIX))
         if x.dim() != 3 or not x.is_contiguous():
             raise ValueError(
                 f"fused_ln_mhsa: x must be a contiguous (B, T, C) tensor, got {x.shape}")

@@ -34,12 +34,13 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
-from prpe_tpu_torch.ops.kernels import _build
+from prpe_tpu_torch.ops.kernels._build import INT, PTR, Library
 
+LIBRARY = Library("ms_deform_attn", {f"prpe_msda_{dt}": [PTR] * 5 + [INT] * 8 + [PTR]
+                                     for dt in ("f32", "bf16")}, routes=("msda",))
 # most levels the kernel takes (``kMaxLevels``)
 MAX_LEVELS = 8
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_entry = {}
 
 
 def ms_deform_attn_plain(value: torch.Tensor, shapes: Sequence[int], locations: torch.Tensor,
@@ -96,26 +97,17 @@ def _check(value: torch.Tensor, shapes: Sequence[int], locations: torch.Tensor,
 
 def _launch(value, shapes, locations, weights) -> torch.Tensor:
     """Launch ``prpe_msda_<dtype>`` on CUDA tensors, checked first."""
-    index = value.get_device()
-    if index != torch._C._cuda_getDevice():
-        with torch.cuda.device(index):
-            return _launch(value, shapes, locations, weights)
     _check(value, shapes, locations, weights)
     b, s, heads, dim = value.shape
     _, len_q, _, levels, points, _ = locations.shape
     out = torch.empty(b, len_q, heads * dim, dtype=value.dtype, device=value.device)
     if out.numel() == 0:
         return out
-    fn = _entry.get(value.dtype)
-    if fn is None:
-        fn = _entry[value.dtype] = getattr(_build.load("ms_deform_attn"),
-                                           f"prpe_msda_{_SUFFIX[value.dtype]}")
     levels_arg = (ctypes.c_int * len(shapes))(*shapes)
-    err = fn(value.data_ptr(), locations.data_ptr(), weights.data_ptr(), out.data_ptr(),
-             ctypes.addressof(levels_arg), b, s, heads, dim, len_q, levels, points, index,
-             torch._C._cuda_getCurrentRawStream(index))
-    _build.check(err, "ms_deform_attn launch")
-    _build.launches["msda"] += 1
+    LIBRARY.launch(f"prpe_msda_{_SUFFIX[value.dtype]}", LIBRARY.routes, value, value.data_ptr(),
+                   locations.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                   ctypes.addressof(levels_arg), b, s, heads, dim, len_q, levels, points,
+                   value.get_device())
     return out
 
 

@@ -11,8 +11,12 @@ from __future__ import annotations
 import torch
 
 from prpe_tpu_torch.ops.boxes import pairwise_iou
-from prpe_tpu_torch.ops.kernels import _build
+from prpe_tpu_torch.ops.kernels._build import FLOAT, INT, PTR, Library
 
+# NMS must reproduce the plain version's fp32 IoU bit for bit: no FMA
+# contraction (IEEE division is nvcc's default without --use_fast_math).
+LIBRARY = Library("nms", {"prpe_nms_keep": [PTR, PTR, PTR, INT, INT, FLOAT, PTR]},
+                  routes=("nms",), flags=("-fmad=false",))
 # largest candidate count the kernel takes: the JAX package's MAX_PALLAS_K
 # (the (K, ceil(K/32)) bit matrix is 128 KB of shared memory at 1024)
 MAX_K = 1024
@@ -58,13 +62,8 @@ def _(boxes, valid, iou_threshold):
     if boxes.data_ptr() % 16:  # the kernel reads each box as one 16-byte vector
         boxes = boxes.clone()
     keep = torch.empty(b, k, dtype=torch.bool, device=boxes.device)
-    lib = _build.load("nms")
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream(boxes.device).cuda_stream
-        err = lib.prpe_nms_keep(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                                b, k, float(iou_threshold), stream)
-    _build.check(err, "nms_keep launch")
-    _build.launches["nms"] += 1
+    LIBRARY.launch("prpe_nms_keep", LIBRARY.routes, boxes, boxes.data_ptr(), valid.data_ptr(),
+                   keep.data_ptr(), b, k, float(iou_threshold))
     return keep
 
 

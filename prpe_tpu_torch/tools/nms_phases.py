@@ -40,6 +40,7 @@ from pathlib import Path
 import torch
 
 from prpe_tpu_torch.ops.kernels import _build
+from prpe_tpu_torch.ops.kernels.nms import LIBRARY
 
 MAX_MARKS = 12
 MAX_BLOCKS = 8192
@@ -121,18 +122,16 @@ def build(name: str, src: str) -> ctypes.CDLL:
     probe.mkdir(parents=True, exist_ok=True)
     cu, lib_path = probe / f"nms_{name}.cu", probe / f"libnms_{name}.so"
     cu.write_text(src)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.EXTRA_FLAGS["nms"], "-o", str(lib_path),
-           str(cu)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *LIBRARY.flags, "-o", str(lib_path), str(cu)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(str(lib_path))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.prpe_nms_keep.argtypes = [P, P, P, I, I, F, P]
-    lib.prpe_phase_reset.argtypes = [P]
-    lib.prpe_phase_read.argtypes = [P, P]
+    lib.prpe_nms_keep.argtypes = LIBRARY.entry_points["prpe_nms_keep"]
+    lib.prpe_phase_reset.argtypes = [_build.PTR]
+    lib.prpe_phase_read.argtypes = [_build.PTR, _build.PTR]
     for fn in (lib.prpe_nms_keep, lib.prpe_phase_reset, lib.prpe_phase_read, lib.prpe_clock_khz):
-        fn.restype = I
+        fn.restype = _build.INT
     return lib
 
 

@@ -71,7 +71,7 @@ def make_variant(lib: str, name: str, edits) -> Path:
 def build(lib: str, variants: dict) -> dict:
     procs = {}
     for name, root in variants.items():
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.EXTRA_FLAGS.get(lib, []),
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *_build.libraries[lib].flags,
                "-o", str(root / f"lib{lib}.so"), str(root / f"{lib}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
@@ -85,7 +85,7 @@ def build(lib: str, variants: dict) -> dict:
         if proc.returncode:
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
         dll = ctypes.CDLL(str(variants[name] / f"lib{lib}.so"))
-        for sym, argtypes in _build.SIGNATURES[lib].items():
+        for sym, argtypes in _build.libraries[lib].entry_points.items():
             fn = getattr(dll, sym)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = dll

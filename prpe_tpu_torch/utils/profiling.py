@@ -23,7 +23,8 @@ no CUDA event, nothing kept. With it on, every call of the runner keeps
   its host duration);
 * its counters: ints, masks the runner computed anyway (summed only when
   read, so a call gets no added kernel and no sync) and the kernel launches
-  of the call read from ``ops/kernels/_build.py::launches``.
+  of the call, one ``<route>_launches`` for each route in
+  ``prpe_tpu_torch.ops.kernels.launches``.
 
 The spans of one call (name: parent, what it covers):
 
@@ -52,12 +53,12 @@ The counters of one call are the gating funnel: ``frames`` -> ``persons``
 (valid detections) and ``faces`` -> ``face_slots_used`` of ``face_slots``
 (top-F) -> ``matched_faces`` -> ``gated_persons`` -> ``pose_slots_used`` of
 ``pose_slots`` (top-G), with ``face_budget_saturated`` (1 where valid faces
-outnumbered the face slots) and the call's NMS (K1), packed attention (K2),
-fused eval BatchNorm and deformable attention launches, ``k1_launches``,
-``k2_launches``, ``bn_act_launches`` and ``msda_launches``, and
-``bn_act_residual_launches``, the fused BatchNorms that also added a
-residual (RT-DETR's bottlenecks and RepVGG blocks; each also counts in
-``bn_act_launches``); 0 where the path has no such kernel.
+outnumbered the face slots), and the call's launches of each kernel route:
+``nms_launches`` (K1), ``mhsa_launches`` (K2), ``bn_act_launches``,
+``bn_act_residual_launches`` (those that also added a residual, RT-DETR's
+bottlenecks and RepVGG blocks), ``msda_launches`` and the rest that the
+wrappers declare (``ops/kernels/__init__.py``); 0 where the path has no
+such kernel.
 
 The records of the most recent ``RING_CALLS`` calls are kept. :func:`spans`
 and :func:`counters` return those of the latest stretch of calls during
@@ -79,14 +80,11 @@ from typing import Callable, Dict, Iterable, List
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-from prpe_tpu_torch.ops.kernels._build import launches
+from prpe_tpu_torch.ops.kernels import launches
 
 # calls whose records are kept: at 9 spans a call, 18 CUDA events and about
 # ten small masks each, a few MB of host memory at most
 RING_CALLS = 1024
-# kernel route in ``_build.launches`` -> the counter of its launches a call
-LAUNCH_COUNTERS = {"nms": "k1_launches", "mhsa": "k2_launches", "bn_act": "bn_act_launches",
-                   "bn_act_residual": "bn_act_residual_launches", "msda": "msda_launches"}
 
 
 def count_flops(fn: Callable, *args, **kwargs) -> Dict[str, float]:
@@ -224,8 +222,8 @@ class _Call(_Span):
 
     def __exit__(self, *exc):
         super().__exit__(*exc)
-        for route, counter in LAUNCH_COUNTERS.items():
-            self.kept[counter] = launches[route] - self.launches_before[route]
+        for route, n in launches.items():
+            self.kept[f"{route}_launches"] = n - self.launches_before[route]
         if exc[0] is None:
             _ring.append(self)
         return False

@@ -9,6 +9,8 @@ import sys
 import pytest
 import torch
 
+from prpe_tpu_torch.ops.kernels import _build
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "prpe_tpu")
 # absent on the card's host: imported only inside the functions that need them
@@ -261,8 +263,6 @@ def test_harness_entry_points_default_to_cuda(monkeypatch, tmp_path):
 def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     """An edited ``csrc/*.cuh`` header changes every library's target, so
     the next build compiles it anew."""
-    from prpe_tpu_torch.ops.kernels import _build
-
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
     (tmp_path / "h.cuh").write_text("// one\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -272,11 +272,9 @@ def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
     assert _build._target("k") != before
 
 
-@pytest.mark.parametrize("lib", ["nms", "mhsa", "ln_mhsa"])
+@pytest.mark.parametrize("lib", sorted(_build.libraries))
 def test_every_entry_point_is_defined_in_its_source(lib):
-    """Each C symbol the ctypes bindings declare is defined in its source."""
-    from prpe_tpu_torch.ops.kernels import _build
-
+    """Each C symbol a wrapper's declaration binds is defined in its source."""
     source = (_build.CSRC / f"{lib}.cu").read_text()
-    for symbol in _build.SIGNATURES[lib]:
+    for symbol in _build.libraries[lib].entry_points:
         assert f"int {symbol}(" in source or f"({symbol}," in source, symbol

@@ -13,6 +13,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from prpe_tpu_torch.core.config import CascadeConfig, DetectionConfig, PoseConfig
 from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
+from prpe_tpu_torch.ops.kernels import launches
 from prpe_tpu_torch.ops.roi import crop_and_resize_batch
 from prpe_tpu_torch.utils import profiling
 from test_torch_cascade import CFG, POSE, POSE_CAPACITY
@@ -142,17 +143,16 @@ def test_counters_are_the_results_own_masks(cascade, case):
         "gated_persons": int(res.person_gated.sum()),
         "pose_slots": POSE_CAPACITY, "pose_slots_used": int(res.pose_valid.sum()),
         "face_budget_saturated": int(res.face_budget_saturated),
-        "k1_launches": 0, "k2_launches": 0, "bn_act_launches": 0,
-        "bn_act_residual_launches": 0, "msda_launches": 0,
+        **{f"{route}_launches": 0 for route in launches},
     }
     assert got["matched_faces"] > 0 and got["pose_slots_used"] > 0
 
 
 def test_launch_counters_are_the_calls_own(cascade, monkeypatch):
-    """``k1_launches`` is the call's own share of ``_build.launches``: here
-    a stand-in NMS counts a launch each, as the card's wrapper does."""
+    """``nms_launches`` is the call's own share of ``launches``: here a
+    stand-in NMS counts a launch each, as the card's wrapper does. A traced
+    call keeps one ``<route>_launches`` for each route in ``launches``."""
     from prpe_tpu_torch.infer import cascade as cascade_mod
-    from prpe_tpu_torch.ops.kernels._build import launches
 
     nms = cascade_mod.non_max_suppression
 
@@ -166,7 +166,8 @@ def test_launch_counters_are_the_calls_own(cascade, monkeypatch):
     run(images, gallery)
     _traced(run, images, gallery)
     got = profiling.counters()[-1]
-    assert (got["k1_launches"], got["k2_launches"], launches["nms"]) == (2, 0, 104)
+    assert (got["nms_launches"], got["mhsa_launches"], launches["nms"]) == (2, 0, 104)
+    assert {k for k in got if k.endswith("_launches")} == {f"{r}_launches" for r in launches}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -187,7 +188,6 @@ def test_bn_act_launches_count_every_batchnorm(cascade, monkeypatch):
     the card's wrapper does."""
     from prpe_tpu_torch.nn.common import BatchNorm
     from prpe_tpu_torch.ops.kernels import bn_act as bn_act_mod
-    from prpe_tpu_torch.ops.kernels._build import launches
 
     plain = bn_act_mod.bn_act_plain
 
