@@ -12,7 +12,6 @@ the plain resize, every visual transform).
 
 import numpy as np
 import pytest
-import torch
 
 from prpe_tpu.data import augment as jaug
 from prpe_tpu.data import detection as jdet
@@ -22,16 +21,6 @@ from prpe_tpu_torch.data import augment as aug
 from prpe_tpu_torch.data import detection, pipeline
 from prpe_tpu_torch.data.loader import MultiprocessLoader
 from prpe_tpu_torch.tools.make_dataset import make_detection_split
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several test processes on the
-    host's cores, and these small shapes gain nothing from more."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def same(a, b):

@@ -33,16 +33,6 @@ LAYOUTS = ("nchw", "channels_last", "rows")
 C = 24
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several test processes on the
-    host's cores, and these small shapes gain nothing from more."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
 def parent_eval(bn, x, act=None):
     """The eval BatchNorm and activation as the port ran them before the
     fused op, op for op."""

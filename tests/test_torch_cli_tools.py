@@ -19,7 +19,6 @@ import zipfile
 
 import numpy as np
 import pytest
-import torch
 
 from prpe_tpu.cli import convert_coco as jconvert_coco
 from prpe_tpu.cli import convert_ms1m as jconvert_ms1m
@@ -28,16 +27,6 @@ from prpe_tpu_torch.cli import (
     convert_coco, convert_ms1m, download_coco, download_models, eval_verification,
 )
 from prpe_tpu_torch.data.image import decode_image, encode_png
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several test processes on the
-    host's cores, and these small shapes gain nothing from more."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
 
 
 def tree(root):

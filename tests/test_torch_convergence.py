@@ -20,7 +20,6 @@ import shutil
 import sys
 
 import pytest
-import torch
 
 from prpe_tpu_torch.cli import train as cli_train
 from prpe_tpu_torch.tools import run_convergence as prc
@@ -39,16 +38,6 @@ def jax_tool(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The suite runs several test processes on the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -18,16 +18,6 @@ from prpe_tpu_torch.tools import (
 )
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several test processes on the
-    host's cores, and these small shapes gain nothing from more."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
 def json_lines(text):
     return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
 

@@ -81,15 +81,6 @@ def write_detector_npz(out=DETECTOR_NPZ, ckpt=DETECTOR_CKPT):
     np.savez(out, **flatten_variables(restore_detector(ckpt)))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The suite runs several test processes on the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
-
 # ------------------------------------------------------------------ scenes
 
 def jax_skeleton_scene():

@@ -26,7 +26,7 @@ from prpe_tpu_torch.core import config as pcfg
 from prpe_tpu_torch.models.porting import from_jax_variables
 from prpe_tpu_torch.train import optim
 from prpe_tpu_torch.train.state import update_ema
-from prpe_tpu_torch.train.steps import trainable_mask, trainable_params
+from prpe_tpu_torch.train.steps import TASK_BRANCHES, trainable_mask, trainable_params
 from test_torch_train import jax_variables, port_model
 
 SCHEDULES = [
@@ -93,7 +93,7 @@ def test_optimizer_chain_matches_optax(tree, task, kw):
 
     jparams = jax.tree_util.tree_map(jnp.asarray, v["params"])
     jtx = jsteps.mask_optimizer(joptim.build_optimizer(jcfg.OptimConfig(**kw), jparams), task)
-    jstate_ = jtx.init(jparams)
+    jstate_ = jax.jit(jtx.init)(jparams)
     jupdate = jax.jit(jtx.update)
     japply = jax.jit(optax.apply_updates)
     jmask = jsteps.trainable_mask(jparams, task)
@@ -107,7 +107,7 @@ def test_optimizer_chain_matches_optax(tree, task, kw):
         jgrads = jax.tree_util.tree_map(
             lambda p, m: rng.normal(0, scale, p.shape).astype(np.float32) * np.float32(m),
             jparams, jmask)
-        grads = {n: t for n, t in from_jax_variables({"params": jgrads}).items() if n in params}
+        grads = from_jax_variables({"params": {k: jgrads[k] for k in TASK_BRANCHES[task]}})
         updates, state = tx.update(grads, state, params)
         params = {n: params[n] + updates[n] for n in params}
         jupdates, jstate_ = jupdate(jgrads, jstate_, jparams)

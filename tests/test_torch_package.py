@@ -278,3 +278,9 @@ def test_every_entry_point_is_defined_in_its_source(lib):
     source = (_build.CSRC / f"{lib}.cu").read_text()
     for symbol in _build.libraries[lib].entry_points:
         assert f"int {symbol}(" in source or f"({symbol}," in source, symbol
+
+
+def test_suite_runs_torch_on_one_thread():
+    """``conftest.py`` pins torch's intra-op threads for every test, so that
+    the suite's worker processes do not oversubscribe the host's cores."""
+    assert torch.get_num_threads() == 1

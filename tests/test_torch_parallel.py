@@ -56,15 +56,6 @@ SHAPES = ((2, 1), (1, 2), (2, 2))
 F64 = dict(param_tol=1e-10, floor=1e-10, metric_tol=1e-6, norm_tol=1e-6, stat_tol=1e-10)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The suite runs several test processes on the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
-
 # ------------------------------------------------------------------- mesh
 
 def test_mesh_shapes():

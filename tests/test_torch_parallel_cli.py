@@ -23,15 +23,6 @@ from prpe_tpu_torch.tools.make_dataset import make_dataset
 import torch_parallel_workers as W
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The suite runs several test processes on the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
-
-
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
     d = tmp_path_factory.mktemp("data")

@@ -35,16 +35,6 @@ SIZE = 96
 TOL = 1e-4
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several test processes on the
-    host's cores, and these small shapes gain nothing from more."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
 def close(got, want, tol=TOL):
     scale = float(want.abs().max().clamp(min=1e-6))
     return float((got - want).abs().max()) <= tol * scale

@@ -172,10 +172,10 @@ def test_train_step_matches_jax(jax_steps, task):
                               before["backbone.bn1.running_mean"].numpy())
 
 
-def test_trainable_mask_scopes():
+def test_trainable_mask_scopes(jax_steps):
     """The three scopes against the JAX masks on the same tree, through the
     bridge's names."""
-    jm, v = jax_variables()
+    v, _, _ = jax_steps
     pm = port_model(v)
     for scope in ("branch", "branch+backbone", "all"):
         for task in jcfg.TASKS:

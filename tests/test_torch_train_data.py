@@ -28,18 +28,6 @@ from prpe_tpu_torch.tools.make_dataset import make_dataset
 TASKS = ("person_detection", "face_detection", "face_recognition", "pose_estimation")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several test processes on the
-    host's cores, and the tiny model's ops gain nothing from more."""
-    import torch
-
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
 @pytest.fixture(scope="module")
 def data_root(tmp_path_factory):
     # two identities of 20 crops: the 10 % val split holds a same-identity

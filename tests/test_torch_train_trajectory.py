@@ -114,16 +114,6 @@ ADAM_BOUND = 2.0  # (1.0)
 BF16_FACTOR = 3.0  # (1.5)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several test processes on the
-    host's cores, and these small shapes gain nothing from more."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
 def model_config(m):
     """``chip_smoke.py::tiny_combined_config`` in package ``m``, with the
     detection adapters at 64^2 as in ``tests/test_torch_train.py``: at 32^2

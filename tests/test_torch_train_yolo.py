@@ -72,16 +72,6 @@ _numerics = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(_numerics)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several test processes on the
-    host's cores, and these small shapes gain nothing from more."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(saved)
-
-
 def batches(seed=0, n=ACCUMULATE):
     """Synthetic detection batches with uint8 images (the loaders' dtype)."""
     rng = np.random.default_rng(seed)

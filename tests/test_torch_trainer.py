@@ -91,8 +91,9 @@ def test_checkpoint_save_restore_keep_and_best(tmp_path):
     assert entry["epoch"] == 3 and entry["last_task"] == tasks[0]
     assert restored.step == 7
     assert same_tree(restored.opt_states, state.opt_states)
+    got = other.state_dict()
     for k, t in model.state_dict().items():
-        assert torch.equal(other.state_dict()[k], t), k
+        assert torch.equal(got[k], t), k
     # a slim best_* checkpoint: the model only, the optimizers stay fresh
     restored, entry = CheckpointManager(str(tmp_path)).restore(other, fresh, "best_pose_estimation")
     assert restored is fresh and entry["last_task"] == tasks[0]
@@ -112,7 +113,8 @@ def test_checkpoint_ignores_leftovers_and_torn_meta(tmp_path):
     assert path.endswith("epoch0001_person_detection.pt")
     assert entry == {"name": "epoch0001_person_detection", "epoch": 1,
                      "last_task": "person_detection"}
-    ck.restore(tiny_model(seed=2), state_for(tiny_model(seed=2), tasks))
+    other = tiny_model(seed=2)
+    ck.restore(other, state_for(other, tasks))
     # the next save of that slot clears the leftover
     ck.save(model, state, 2, tasks[0])
     assert not list(tmp_path.glob("*.tmp*"))
@@ -147,8 +149,9 @@ def test_round_robin_trains_each_task_and_resumes_mid_cycle(tmp_path):
         assert np.isfinite(h["train/loss"]) and np.isfinite(h["val_loss"])
         assert h["train/images_per_sec"] > 0
     # branch scope: the trunk's parameters did not move
+    got = trainer.model.state_dict()
     for k, t in trunk.items():
-        assert torch.equal(trainer.model.state_dict()[k], t), k
+        assert torch.equal(got[k], t), k
     ck = tmp_path / "ck"
     assert (ck / "epoch0000_person_detection.pt").exists()
     assert (ck / "best_pose_estimation.pt").exists()
