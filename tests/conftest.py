@@ -66,12 +66,3 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
-
-
-@pytest.fixture(scope="session", autouse=True)
-def torch_on_one_thread():
-    """One intra-op thread for torch: the suite runs several test processes
-    on the host's cores, and its small shapes gain nothing from more."""
-    import torch
-
-    torch.set_num_threads(1)

@@ -53,6 +53,8 @@ def test_build_variables_fresh_init(tmp_path):
     )
     assert "params" in variables and "batch_stats" in variables
     x = jnp.zeros((1, tiny_cfg.image_size, tiny_cfg.image_size, 3))
-    hm = jax.jit(lambda v, x: model.apply(v, x, False, method="pose"))(
-        {k: jax.tree_util.tree_map(jnp.asarray, v) for k, v in variables.items()}, x)
+    hm = model.apply(
+        {k: jax.tree_util.tree_map(jnp.asarray, v) for k, v in variables.items()},
+        x, False, method="pose",
+    )
     assert np.all(np.isfinite(np.asarray(hm)))

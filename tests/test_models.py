@@ -35,23 +35,22 @@ def combined():
     model = CombinedModel(config=cfg)
     x = jnp.zeros((1, 128, 128, 3))
     labels = jnp.zeros((1,), jnp.int32)
-    variables = jax.jit(lambda k, x, labels: model.init(k, x, labels, method="init_all"))(
-        jax.random.key(0), x, labels)
+    variables = model.init(jax.random.key(0), x, labels, method="init_all")
     return cfg, model, variables
 
 
 def test_resnet_trunk_shape():
     m = ResNetTrunk()
-    v = jax.jit(m.init)(jax.random.key(0), jnp.zeros((1, 64, 64, 3)))
-    y = jax.jit(m.apply)(v, jnp.zeros((2, 64, 64, 3)))
+    v = m.init(jax.random.key(0), jnp.zeros((1, 64, 64, 3)))
+    y = m.apply(v, jnp.zeros((2, 64, 64, 3)))
     assert y.shape == (2, 2, 2, 2048)
 
 
 def test_yolo_shapes_and_decode():
     m = YOLO(nc=1, variant="n")
     x = jnp.zeros((2, 64, 64, 3))
-    v = jax.jit(m.init)(jax.random.key(0), x)
-    outs = jax.jit(m.apply)(v, x)
+    v = m.init(jax.random.key(0), x)
+    outs = m.apply(v, x)
     assert [tuple(o.shape) for o in outs] == [
         (2, 8, 8, 65), (2, 4, 4, 65), (2, 2, 2, 65)
     ]
@@ -64,8 +63,8 @@ def test_yolo_shapes_and_decode():
 def test_irnet_embedding_normalized():
     m = build_irnet("ir_18")
     x = jax.random.normal(jax.random.key(1), (2, 112, 112, 3))
-    v = jax.jit(m.init)(jax.random.key(0), x)
-    emb, norms = jax.jit(m.apply)(v, x)
+    v = m.init(jax.random.key(0), x)
+    emb, norms = m.apply(v, x)
     assert emb.shape == (2, 512) and norms.shape == (2, 1)
     np.testing.assert_allclose(
         np.linalg.norm(np.asarray(emb), axis=1), np.ones(2), rtol=1e-4
@@ -75,8 +74,8 @@ def test_irnet_embedding_normalized():
 def test_vitpose_shapes():
     m = ViTPose(image_size=(64, 48), hidden=64, layers=1, heads=2)
     x = jnp.zeros((2, 64, 48, 3))
-    v = jax.jit(m.init)(jax.random.key(0), x)
-    hm = jax.jit(m.apply)(v, x)
+    v = m.init(jax.random.key(0), x)
+    hm = m.apply(v, x)
     # 64/16=4 (+pad adj) x4 -> 16; 48/16=3 x4 -> 12
     assert hm.shape == (2, 17, 16, 12)
 
@@ -85,19 +84,18 @@ def test_combined_all_tasks(combined):
     cfg, model, variables = combined
     x = jnp.zeros((2, 128, 128, 3))
 
-    def apply(method, *args):
-        return jax.jit(lambda v, x: model.apply(v, x, *args, method=method))(variables, x)
-
-    person = apply("detect", "person")
+    person = model.apply(variables, x, "person", method="detect")
     assert len(person) == 3 and person[0].shape[-1] == 65
 
-    emb, norms = apply("embed_face")
+    emb, norms = model.apply(variables, x, method="embed_face")
     assert emb.shape == (2, 512)
 
-    logits = apply("face_logits", jnp.zeros((2,), jnp.int32), False)
+    logits = model.apply(
+        variables, x, jnp.zeros((2,), jnp.int32), False, method="face_logits"
+    )
     assert logits.shape == (2, cfg.face.num_classes)
 
-    hm = apply("pose")
+    hm = model.apply(variables, x, method="pose")
     assert hm.shape == (2, 17, 16, 12)
 
 
@@ -116,9 +114,10 @@ def test_margin_stats_update_in_train_mode(combined):
     cfg, model, variables = combined
     x = jax.random.normal(jax.random.key(1), (2, 128, 128, 3))
     labels = jnp.zeros((2,), jnp.int32)
-    _, mutated = jax.jit(lambda v, x, labels, key: model.apply(
-        v, x, labels, True, method="face_logits", mutable=["batch_stats"],
-        rngs={"dropout": key}))(variables, x, labels, jax.random.key(2))
+    _, mutated = model.apply(
+        variables, x, labels, True, method="face_logits",
+        mutable=["batch_stats"], rngs={"dropout": jax.random.key(2)},
+    )
     old = variables["batch_stats"]["margin_mean"]
     new = mutated["batch_stats"]["margin_mean"]
     assert not np.allclose(np.asarray(old), np.asarray(new))

@@ -11,6 +11,7 @@ from prpe_tpu.ops.pallas.attention_kernel import _pallas_forward
 from prpe_tpu_torch.ops.kernels.attention import (
     mhsa_bhtd, mhsa_bhtd_plain, mhsa_packed, mhsa_packed_plain,
 )
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 B, T, H, D = 2, 24, 2, 16
 

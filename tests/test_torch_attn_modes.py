@@ -22,6 +22,7 @@ from prpe_tpu.nn.vit import ViTPose as JViTPose
 from prpe_tpu_torch.nn import vit as pvit
 from prpe_tpu_torch.nn.vit import MHSA, ViTBlock, ViTPose
 from test_torch_models import assert_rel, port_module, random_variables
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 # tools/bench_attention.py's seven modes, the legacy alias and an unknown
 # pallas_* suffix (None: PRPE_ATTN_MODE unset)

@@ -21,6 +21,7 @@ from prpe_tpu_torch.data import augment as aug
 from prpe_tpu_torch.data import detection, pipeline
 from prpe_tpu_torch.data.loader import MultiprocessLoader
 from prpe_tpu_torch.tools.make_dataset import make_detection_split
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 def same(a, b):

@@ -43,6 +43,7 @@ from prpe_tpu_torch.nn.vit import ViTPose
 from prpe_tpu_torch.nn.yolo import YOLO
 from test_torch_combined import tiny_config
 from test_torch_models import port_module, random_variables
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 REL_LIMIT = 0.02
 YARDSTICK = 1.5

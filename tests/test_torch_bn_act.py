@@ -26,6 +26,7 @@ from prpe_tpu_torch.nn.rtdetr import RepVggBlock
 from prpe_tpu_torch.nn.yolo import YOLO
 from prpe_tpu_torch.ops.kernels import bn_act as bn_act_mod
 from prpe_tpu_torch.ops.kernels.bn_act import bn_act, bn_act_plain, geometry
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "f64": torch.float64}
 ACTS = ("none", "silu", "prelu", "relu")

@@ -28,6 +28,7 @@ from prpe_tpu_torch.nn.rtdetr import RTDETR
 from prpe_tpu_torch.nn.yolo import YOLO
 from prpe_tpu_torch.ops.kernels import launches
 from prpe_tpu_torch.ops.kernels.bn_act import bn_act, bn_act_plain
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 
 from prpe_tpu_torch.ops.kernels import _build
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 _COMMENT = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)

@@ -29,6 +29,7 @@ from prpe_tpu_torch.infer.cascade import CascadeModel, build_cascade_runner
 from prpe_tpu_torch.models.porting import from_jax_variables
 from prpe_tpu_torch.ops.roi import crop_and_resize_batch
 from test_torch_models import random_variables
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 _spec = importlib.util.spec_from_file_location(
     "check_cascade_numerics",

@@ -26,6 +26,7 @@ from prpe_tpu_torch.models import porting
 from prpe_tpu_torch.models.combined import CombinedModel
 from prpe_tpu_torch.models.porting import from_jax_variables
 from test_torch_models import random_variables
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 SCORE_TOL = 1e-5  # sigmoid scores, cosine similarities, softmax keypoint scores
 KPT_TOL = 1e-3  # px

@@ -27,6 +27,7 @@ from prpe_tpu_torch.cli import (
     convert_coco, convert_ms1m, download_coco, download_models, eval_verification,
 )
 from prpe_tpu_torch.data.image import decode_image, encode_png
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 def tree(root):

@@ -31,6 +31,7 @@ from prpe_tpu_torch.nn.resnet import ResNetTrunk
 from prpe_tpu_torch.nn.vit import ClassicDecoder, ViTPose
 from prpe_tpu_torch.ops import margin
 from test_torch_models import assert_rel, nchw, port_module, random_variables, to_nhwc
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -25,6 +25,7 @@ from prpe_tpu_torch.cli import train as cli_train
 from prpe_tpu_torch.tools import run_convergence as prc
 from prpe_tpu_torch.tools import run_face_validation as pfv
 from prpe_tpu_torch.tools.make_dataset import make_dataset
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TINY = ("--device", "cpu", "--preset", "tiny", "--image-size", "64", "--batch-size", "2")

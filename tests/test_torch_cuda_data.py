@@ -17,6 +17,7 @@ from prpe_tpu_torch.eval.map import detection_eval_hook
 from prpe_tpu_torch.ops.nms import Detections
 from prpe_tpu_torch.train.round_robin import _to_host_tree
 from prpe_tpu_torch.train.steps import to_device
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

@@ -33,6 +33,7 @@ from prpe_tpu_torch import native
 from prpe_tpu_torch.data import detection, faces, image, packed, pipeline, pose
 from prpe_tpu_torch.tools import make_dataset
 from prpe_tpu_torch.train.steps import to_device
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -35,6 +35,7 @@ from prpe_tpu_torch.train.steps import make_eval_step
 from test_keypoint_eval import _scenario, cocoeval_reference
 from test_map_golden import _scene, ref_compute_ap, ref_compute_metric
 from test_torch_train import jax_variables, port_model, train_config
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 def same(a, b):

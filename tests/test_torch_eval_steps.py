@@ -22,6 +22,7 @@ from prpe_tpu_torch.core import config as pcfg
 from prpe_tpu_torch.ops.kernels import _build
 from prpe_tpu_torch.train.steps import make_eval_step
 from test_torch_train import jax_variables, port_model, rel_err, task_batches, train_config
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ from prpe_tpu_torch.tools import (
     bench_attention, bench_cascade, bench_io, bench_train, bench_vit_ln, dump_trace_ops,
     profile_cascade, profile_train, reference_nets, reference_rtdetr,
 )
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 def json_lines(text):

@@ -15,6 +15,7 @@ from prpe_tpu_torch.ops.kernels.attention import mhsa_packed_plain
 from prpe_tpu_torch.ops.kernels.ln_mhsa import (
     fused_ln_mhsa, layernorm, layernorm_plain, linear, linear_plain, ln_mhsa_plain,
 )
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 def half_block_inputs(b, t, c, seed):

@@ -18,6 +18,7 @@ from prpe_tpu_torch.ops.kernels import _build
 from prpe_tpu_torch.ops.kernels.ln_mhsa import (
     _LN_MAX_BYTES, _check_row_width, layernorm_plain, linear_plain,
 )
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 SRC = (_build.CSRC / "ln_mhsa.cu").read_text()
 

@@ -20,6 +20,7 @@ from prpe_tpu.ops import heatmap as jheatmap
 from prpe_tpu.ops import losses as jlosses
 from prpe_tpu_torch.ops import assigner, boxes, heatmap, losses
 from tests.ref_yolo import naive_assign, ref_compute_loss
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 NC, REG_MAX = 3, 16
 STRIDES = (8, 16)

@@ -25,6 +25,7 @@ from prpe_tpu_torch.nn import common as pcommon
 from prpe_tpu_torch.nn.irnet import IRNet
 from prpe_tpu_torch.nn.vit import ViTPose
 from prpe_tpu_torch.nn.yolo import YOLO, decode_predictions
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 REL_TOL = 1e-4  # fp32 on both sides; convolution sums differ in order only
 

@@ -34,6 +34,7 @@ from prpe_tpu_torch.nn.common import materialize
 from prpe_tpu_torch.nn.rtdetr import RTDETR
 from prpe_tpu_torch.ops.kernels import launches
 from prpe_tpu_torch.ops.kernels.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

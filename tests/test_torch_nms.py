@@ -19,6 +19,7 @@ from prpe_tpu_torch.models.porting import from_jax_variables
 from prpe_tpu_torch.nn.common import build_on
 from prpe_tpu_torch.nn.yolo import YOLO, decode_predictions
 from prpe_tpu_torch.ops.kernels.nms import nms_keep, nms_keep_plain
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 DETECTOR_CKPT = pathlib.Path(__file__).resolve().parents[1] / "runs" / "r4_numerics" / "detector_ckpt"
 

@@ -22,6 +22,7 @@ import torch
 from prpe_tpu.ops.pallas.nms_kernel import pallas_greedy_nms
 from prpe_tpu_torch.ops.boxes import pairwise_iou
 from prpe_tpu_torch.ops.kernels.nms import greedy_scan, nms_keep_plain
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 WORD = 0xFFFFFFFF
 MAX_STEPS = 33  # the fixed point is reached within 33 steps

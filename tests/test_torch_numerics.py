@@ -39,6 +39,7 @@ from prpe_tpu_torch.nn.yolo import YOLO
 from prpe_tpu_torch.tools import check_cascade_numerics as pcheck
 from prpe_tpu_torch.tools import make_numerics_pose_ckpt as ppose
 from prpe_tpu_torch.tools import scenes
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 DETECTOR_CKPT = ROOT / "runs" / "r4_numerics" / "detector_ckpt"

@@ -11,6 +11,7 @@ from prpe_tpu.ops.anchors import dfl_decode as jdfl_decode, make_anchors as jmak
 from prpe_tpu_torch.ops import heatmap as pheatmap
 from prpe_tpu_torch.ops import roi as proi
 from prpe_tpu_torch.ops.anchors import dfl_decode, make_anchors
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 def test_crop_and_resize_batch():

@@ -28,6 +28,7 @@ from prpe_tpu_torch.train import optim
 from prpe_tpu_torch.train.state import update_ema
 from prpe_tpu_torch.train.steps import TASK_BRANCHES, trainable_mask, trainable_params
 from test_torch_train import jax_variables, port_model
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 SCHEDULES = [
     dict(schedule="constant", learning_rate=3e-3),

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from prpe_tpu_torch.ops.kernels import _build
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "prpe_tpu")
@@ -281,6 +282,9 @@ def test_every_entry_point_is_defined_in_its_source(lib):
 
 
 def test_suite_runs_torch_on_one_thread():
-    """``conftest.py`` pins torch's intra-op threads for every test, so that
-    the suite's worker processes do not oversubscribe the host's cores."""
+    """Every port test file takes ``tests/torch_one_thread.py``'s fixture, so
+    that the suite's worker processes do not oversubscribe the host's cores."""
     assert torch.get_num_threads() == 1
+    line = "from torch_one_thread import torch_on_one_thread  # noqa: F401\n"
+    assert [p.name for p in sorted((ROOT / "tests").glob("test_torch_*.py"))
+            if line not in p.read_text()] == []

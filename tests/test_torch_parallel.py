@@ -50,6 +50,7 @@ from prpe_tpu_torch.parallel import mesh as pmesh
 from test_torch_train import task_batches
 
 import torch_parallel_workers as W
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 OPTIM = dict(optimizer="sgd", learning_rate=0.1, weight_decay=0.0)
 SHAPES = ((2, 1), (1, 2), (2, 2))

@@ -21,6 +21,7 @@ from prpe_tpu_torch.parallel import mesh as pmesh
 from prpe_tpu_torch.tools.make_dataset import make_dataset
 
 import torch_parallel_workers as W
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

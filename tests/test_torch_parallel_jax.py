@@ -7,6 +7,7 @@ tasks are split over two files so that each stays near two minutes)."""
 import pytest
 
 import torch_parallel_jax_ref as R
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 TASKS = ('person_detection', 'face_detection')
 

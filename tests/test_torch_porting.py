@@ -31,6 +31,7 @@ from test_porting import _TorchResNet50Trunk
 from test_porting_yolo_irnet import (
     TIRNet, TYolo, _randomize_bn, _seq_adapter, _TCombined, _TTrunk,
 )
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 FWD_TOL = 1e-4  # fp32 torch on both sides, relative to the output's largest magnitude

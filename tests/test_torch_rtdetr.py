@@ -28,6 +28,7 @@ from prpe_tpu_torch.nn.common import materialize
 from prpe_tpu_torch.nn.rtdetr import RTDETR
 from prpe_tpu_torch.ops.kernels.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
 from prpe_tpu_torch.tools import reference_rtdetr as R
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 TINY = dict(num_classes=3, hidden=32, num_queries=24, heads=2, ffn=64, levels=3, points=2,
             num_decoder_layers=2)

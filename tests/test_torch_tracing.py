@@ -17,6 +17,7 @@ from prpe_tpu_torch.ops.kernels import launches
 from prpe_tpu_torch.ops.roi import crop_and_resize_batch
 from prpe_tpu_torch.utils import profiling
 from test_torch_cascade import CFG, POSE, POSE_CAPACITY
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 PARENTS = {
     "cascade.call": None, "cascade.upload": "cascade.call", "cascade.detect": "cascade.call",

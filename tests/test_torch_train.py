@@ -52,6 +52,7 @@ from prpe_tpu_torch.train.optim import build_optimizer
 from prpe_tpu_torch.train.state import create_train_state
 from prpe_tpu_torch.train.steps import make_train_step, trainable_mask, trainable_params
 from test_torch_models import random_variables
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 LR = 0.1
 
@@ -95,9 +96,15 @@ PARAM_TOL = {"person_detection": 5e-2, "face_detection": 5e-2, "face_recognition
 
 
 @pytest.fixture(scope="module")
-def jax_steps():
+def jax_tree():
+    """``jax_variables()``, built once for the module's tests."""
+    return jax_variables()
+
+
+@pytest.fixture(scope="module")
+def jax_steps(jax_tree):
     """Per task: the JAX metrics and the variables after one step."""
-    jm, v = jax_variables()
+    jm, v = jax_tree
     batches = task_batches()
     cfg = train_config(jcfg)
     out = {}
@@ -172,10 +179,10 @@ def test_train_step_matches_jax(jax_steps, task):
                               before["backbone.bn1.running_mean"].numpy())
 
 
-def test_trainable_mask_scopes(jax_steps):
+def test_trainable_mask_scopes(jax_tree):
     """The three scopes against the JAX masks on the same tree, through the
     bridge's names."""
-    v, _, _ = jax_steps
+    _, v = jax_tree
     pm = port_model(v)
     for scope in ("branch", "branch+backbone", "all"):
         for task in jcfg.TASKS:

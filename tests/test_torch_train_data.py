@@ -24,6 +24,7 @@ from prpe_tpu.cli import train as jcli
 from prpe_tpu.core import config as jcfg
 from prpe_tpu_torch.cli import train as pcli
 from prpe_tpu_torch.tools.make_dataset import make_dataset
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 TASKS = ("person_detection", "face_detection", "face_recognition", "pose_estimation")
 

@@ -21,6 +21,7 @@ from prpe_tpu_torch.nn.resnet import ResNetTrunk
 from prpe_tpu_torch.nn.vit import ViTPose
 from prpe_tpu_torch.ops.kernels.attention import mhsa_backward, mhsa_bhtd, mhsa_packed
 from test_torch_models import port_module, random_variables
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 
 def max_rel(got, want):

@@ -96,6 +96,7 @@ from prpe_tpu_torch.train import optim as poptim
 from prpe_tpu_torch.train.state import create_train_state
 from prpe_tpu_torch.train.steps import TASK_BRANCHES, make_train_step, trainable_params
 from test_torch_models import random_variables
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 CYCLES, STEPS = 3, 4
 TOTAL = CYCLES * STEPS  # steps of each task

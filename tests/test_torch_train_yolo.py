@@ -58,6 +58,7 @@ from prpe_tpu_torch.train.checkpoint import load_model
 from prpe_tpu_torch.train.optim import build_optimizer
 from prpe_tpu_torch.utils import profiling
 from test_torch_models import random_variables
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 SIZE, BATCH, ACCUMULATE = 64, 4, 2
 PARAM_TOL = 5e-2

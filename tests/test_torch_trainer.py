@@ -24,6 +24,7 @@ from prpe_tpu_torch.train.optim import build_optimizer
 from prpe_tpu_torch.train.round_robin import RoundRobinTrainer
 from prpe_tpu_torch.train.state import create_train_state
 from prpe_tpu_torch.train.steps import trainable_params
+from torch_one_thread import torch_on_one_thread  # noqa: F401
 
 SIZE = 64
 
